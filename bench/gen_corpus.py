@@ -13,7 +13,10 @@ from matrix import _gen_corpus_file  # noqa: E402
 
 TOTAL = int(float(sys.argv[1])) if len(sys.argv) > 1 else 100_000_000_000
 # One corpus file per size (a 10 GB proxy and the full 100 GB coexist).
-PATH = f"/root/repo/.corpora/c5_{TOTAL // 1_000_000_000}gb.bin"
+PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".corpora", f"c5_{TOTAL // 1_000_000_000}gb.bin",
+)
 PAT = b"shard merge psum"
 
 

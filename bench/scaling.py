@@ -2,10 +2,11 @@
 """Scaling-efficiency bench (BASELINE.json:5: ">=90% bytes/s at 2+ hosts").
 
 Measures distributed bytes/s on 1, 2, 4, 8-device data meshes with the
-identical shard_map path used on a pod (halo ppermute + psum + all_gather).
-Without a real multi-chip slice this runs on forced CPU host devices — the
-collective/sharding code is what is being exercised; absolute numbers are
-CPU numbers.  On a pod slice the same script reports real ICI scaling.
+shard_map path of match_distributed (halo ppermute + psum + all_gather).
+With --force-cpu-devices (the default) it runs on forced CPU host devices:
+the collective/sharding code is what is being exercised, and the numbers
+are CPU numbers.  With --force-cpu-devices 0 on a machine with several
+GPUs it reports their scaling.
 
 Usage (CPU mesh): python bench/scaling.py --mb 64
 Appends rows to BENCH_SCALING.json.
@@ -62,15 +63,11 @@ def main():
     text = gen_english(n, seed=42)
     pat = b"quick brown fox "
 
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.parallel.mesh import (
-        DATA_AXIS,
-    )
-    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.utils.io import (
-        pad_to_multiple,
-    )
     import jax.numpy as jnp
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.parallel.dist import (
+        _put_sharded,
+    )
 
     algos = (
         ["naive", "rabin_karp", "kmp", "boyer_moore"]
@@ -86,26 +83,18 @@ def main():
             r = dm.match(text)  # warm/compile + correctness reference
             # Time only the sharded computation: device buffers staged once
             # (matching the reference metric: in-memory scan throughput).
-            padded = pad_to_multiple(
-                np.frombuffer(text, np.uint8),
-                (2 << 20) * d,  # tile-multiple shards (see dist.match)
-            )
-            sh = NamedSharding(mesh, P(DATA_AXIS))
-            text_dev = jax.device_put(jnp.asarray(padded), sh)
-            words_dev = jax.device_put(jnp.asarray(padded.view(np.int32)), sh)
+            text_dev, _ = _put_sharded(
+                np.frombuffer(text, np.uint8), mesh, dm.config)
             runner = dm._build(mesh, type(dm.matcher), dm.config, dm.m)
             pat_dev = jnp.asarray(dm.matcher.pattern_arr)
             tb_dev = jax.tree.map(jnp.asarray, dm.matcher.tables)
             jax.block_until_ready(
-                runner(text_dev, words_dev, jnp.int32(n), pat_dev, tb_dev)
+                runner(text_dev, jnp.int32(n), pat_dev, tb_dev)
             )
             t0 = time.perf_counter()
-            outs = [
-                runner(text_dev, words_dev, jnp.int32(n - it), pat_dev,
-                       tb_dev)
-                for it in range(args.iters)
-            ]
-            jax.block_until_ready(outs[-1])
+            for _ in range(args.iters):
+                jax.block_until_ready(
+                    runner(text_dev, jnp.int32(n), pat_dev, tb_dev))
             wall = (time.perf_counter() - t0) / args.iters
             bps = n / wall
             if base is None:
@@ -123,9 +112,7 @@ def main():
                 # On forced CPU host devices the row only proves the
                 # collective CODE PATH; "scaling" over one physical socket
                 # is meaningless and typically anti-scales.  Real efficiency
-                # numbers require a pod slice (the >=90% target,
-                # BASELINE.json:5); the measured per-collective budget is
-                # in BENCH_COLLECTIVES.json (bench/collectives.py).
+                # numbers (the >=90% target, BASELINE.json:5) need cards.
                 "mode": (
                     "cpu-mesh-codepath-only"
                     if jax.devices()[0].platform == "cpu"

@@ -5,10 +5,10 @@ stream their owned slice of a >=10 GB planted corpus (round-4 VERDICT next
 chunked streaming, host-level halo from overlapping file reads, one
 count-sized two-phase collective merge round at the end.
 
-Runs on the CPU backend (the one physical TPU cannot be shared by two
-processes), so the BYTES/S HERE ARE CODE-PATH VALIDATION, NOT CHIP
-PERFORMANCE — the row carries mode='cpu-2proc-codepath' accordingly, like
-the BENCH_SCALING rows.  Exactness is absolute: every planted offset must
+A CPU-only rehearsal: several JAX processes on one card would each reserve
+most of its memory, so the workers run on the CPU backend and the BYTES/S
+HERE ARE CODE-PATH VALIDATION, NOT DEVICE PERFORMANCE — the row carries
+mode='cpu-2proc-codepath' accordingly, like the BENCH_SCALING rows.  Exactness is absolute: every planted offset must
 be present and counts must agree across processes.
 
 Usage: python bench/stream_multihost.py [--path .corpora/c5_10gb.bin]
@@ -23,6 +23,7 @@ import os as _os
 import socket
 import subprocess
 import sys as _sys
+import tempfile
 import time
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -77,11 +78,13 @@ def main():
     size = _os.path.getsize(args.path)
     assert size == meta["total"], (size, meta["total"])
 
-    worker = _os.path.join("/tmp", "tpumatch_smh_worker.py")
+    tmp = tempfile.gettempdir()
+    worker = _os.path.join(tmp, "tpumatch_smh_worker.py")
     with open(worker, "w") as f:
         f.write(WORKER_SRC)
     port = _free_port()
-    outs = [f"/tmp/tpumatch_smh_{p}.json" for p in range(args.procs)]
+    outs = [_os.path.join(tmp, f"tpumatch_smh_{p}.json")
+            for p in range(args.procs)]
     for o in outs:
         for suff in ("", ".manifest"):
             try:

@@ -22,7 +22,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="tpumatch",
-        description="TPU-native exact string matching (naive/RK/KMP/BM)",
+        description="Exact string matching on a GPU with JAX (naive/RK/KMP/BM)",
     )
     ap.add_argument("algo", help="naive | rabin_karp | kmp | boyer_moore (+aliases rk, bm)")
     ap.add_argument("textfile", help="path to the text corpus")
@@ -38,27 +38,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--offsets", type=int, default=20, metavar="K", help="print first K offsets (default 20; -1 = all)")
     ap.add_argument("--hex-pattern", action="store_true", help="interpret pattern args as hex byte strings")
     ap.add_argument("--time", action="store_true", help="print wall time and bytes/s to stderr")
-    ap.add_argument("--emission", default=None, choices=["sparse", "nib"],
-                    help="offset emission mode (default: sparse — kernels "
-                         "emit block sums only)")
-    ap.add_argument("--bm-probes", default=None,
-                    choices=["table_gs", "table_gs1", "table", "table_dyn",
-                             "static"],
-                    help="Boyer-Moore screen probe selection (default "
-                         "table_gs: bad-char + good-suffix scored)")
-    ap.add_argument("--kmp-long", default=None,
-                    choices=["screen", "ripple"],
-                    help="KMP execution for m>32 (default screen: K=1 "
-                         "prefix-automaton candidate screen + full-m "
-                         "verify; ripple: faithful K-word carry-rippled "
-                         "automaton, m<=256)")
-    ap.add_argument("--multi-gather", default=None,
-                    choices=["pselect", "blocks", "groups"],
-                    help="multi-pattern candidate extraction (default "
-                         "pselect: each block verifies only its <=2 "
-                         "hash-flagged patterns; blocks: all-pattern "
-                         "verify, also the k>31 fallback; groups: "
-                         "experimental 32-byte-group granularity)")
     ap.add_argument("--drain", action="store_true",
                     help="guarantee ALL offsets even past --capacity "
                          "(windowed re-extraction; all modes incl. "
@@ -67,9 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--multihost", action="store_true",
                     help="run collectively across the JAX process group "
                          "(topology from TPUMATCH_COORDINATOR / "
-                         "TPUMATCH_NUM_PROCESSES / TPUMATCH_PROCESS_ID or "
-                         "TPU pod autodetection); combine with --stream "
-                         "for per-host chunked streaming (config 5 scale)")
+                         "TPUMATCH_NUM_PROCESSES / TPUMATCH_PROCESS_ID); "
+                         "combine with --stream for per-host chunked "
+                         "streaming (config 5 scale)")
     return ap
 
 
@@ -77,13 +56,11 @@ def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
 
-    import jax
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.utils.cache import (
+        enable_compile_cache,
+    )
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu import (
         match,
@@ -102,14 +79,6 @@ def main(argv=None) -> int:
         patterns = [p.encode("utf-8") for p in args.pattern]
 
     overrides = {"capacity": args.capacity}
-    if args.emission:
-        overrides["emission"] = args.emission
-    if args.bm_probes:
-        overrides["bm_probes"] = args.bm_probes
-    if args.kmp_long:
-        overrides["kmp_long"] = args.kmp_long
-    if args.multi_gather:
-        overrides["multi_gather"] = args.multi_gather
 
     t0 = time.perf_counter()
     if args.stream and args.multihost:

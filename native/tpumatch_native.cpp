@@ -1,9 +1,9 @@
-// Native host-side components of the TPU string-matching framework.
+// Native host-side components of the string-matching framework.
 //
 // The OpenCL reference keeps its serial baselines, table precompute and text
 // loading in C on the host (SURVEY.md components R6, R8-R10, R11); this
-// library is their native equivalent here.  The TPU compute path is Pallas/
-// XLA — this code never touches the accelerator; it provides:
+// library is their native equivalent here.  The device compute path is
+// JAX/XLA — this code never touches the accelerator; it provides:
 //
 //   * serial CPU baselines of all four algorithms (correctness oracle +
 //     speedup denominator, SURVEY.md R6)

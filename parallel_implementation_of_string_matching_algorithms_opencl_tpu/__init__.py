@@ -1,20 +1,21 @@
-"""TPU-native parallel exact string matching framework.
+"""Parallel exact string matching in JAX, on one GPU, a mesh or a stream.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
+A from-scratch JAX/XLA re-design of the capability surface of the
 OpenCL reference `AnupBS28/PARALLEL_IMPLEMENTATION_OF_STRING_MATCHING_ALGORITHMS_OPENCL`
-(see /root/repo/SURVEY.md — the reference mount was empty at survey time, so
-parity is pinned to the driver-set spec in /root/repo/BASELINE.json:5 and the
-conformance oracle, not to reference file:line cites).
+(see SURVEY.md at the repository root — the reference sources were not
+available when it was written, so parity is pinned to the task statement
+in BASELINE.json and the conformance oracle, not to reference file:line
+cites).
 
 Four exact-matching algorithm families, all producing byte-identical sorted
 0-based match offsets (overlapping occurrences included):
 
-- ``naive``        — vectorized shift-AND window compare (VPU-friendly)
+- ``naive``        — vectorized shift-AND window compare
 - ``rabin_karp``   — wrapping-mod-2**32 polynomial window hash + exact verify,
                      multi-pattern capable
 - ``kmp``          — branchless dense-DFA automaton scan, lane-parallel chunks
-- ``boyer_moore``  — bad-char + good-suffix tables; TPU execution uses a
-                     tile-skipping filter+verify pipeline (the TPU-native
+- ``boyer_moore``  — bad-char + good-suffix tables; the default execution
+                     is a probe-screen + verify pipeline (the vector
                      translation of BM's skip loop) with exact parity
 
 Parallel decomposition: text sharded over a 1-D ``data`` mesh axis with

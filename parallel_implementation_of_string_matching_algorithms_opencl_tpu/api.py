@@ -5,14 +5,9 @@
 with halo overlap (SURVEY.md §3.3).  Matchers are cached per
 (algo, pattern, config) so repeated calls hit XLA's compilation cache.
 
-Algorithm choice (measured on TPU v5e, BASELINE.md): ``boyer_moore`` is
-the fastest single-pattern choice on every corpus tested (its probe
-screen makes work scale with candidates, not text); ``naive`` is the
-simplest and second fastest; ``rabin_karp`` only pays off with MULTIPLE
-patterns (one rolled hash vs k hashes — pass a list of patterns), as
-single-pattern RK runs its screen at roughly half of naive for the same
-exact result; ``kmp`` exists for parity/worst-case-linearity and is the
-slowest of the four on this hardware (per-byte table-gather bound).
+Algorithm choice: all four return identical results.  ``rabin_karp``
+shares one hash pass across a LIST of equal-length patterns.  Their speeds
+on the card are recorded in PERF.md.
 """
 
 from __future__ import annotations

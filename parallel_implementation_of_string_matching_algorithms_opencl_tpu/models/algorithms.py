@@ -7,86 +7,23 @@ benchmarked separately (BASELINE.json:2 "bytes/s/chip per algorithm").
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
-from ..kernels import rk_roll, shift_and, swar
 from ..ops import boyer_moore as bm_ops
 from ..ops import kmp as kmp_ops
 from ..ops import naive as naive_ops
 from ..ops import rabin_karp as rk_ops
-from ..ops import reconstruct
 from ..ops import tables
 from ..utils.config import MatchConfig
 from .base import Matcher
 from .registry import register_matcher
 
 
-def _pallas_backend_ok(config: MatchConfig) -> bool:
-    """'auto' engages the Pallas kernels on TPU backends only; 'on' forces
-    them everywhere (CPU runs need config.interpret=True); 'off' keeps the
-    pure-XLA path."""
-    if config.use_pallas == "on":
-        return True
-    if config.use_pallas == "off":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_enabled(config: MatchConfig, m: int) -> bool:
-    """SWAR kernel gate (patterns beyond the 509-byte halo fall back)."""
-    return swar.swar_supported(m, config.interpret) and _pallas_backend_ok(config)
-
-
-def _swar_tables(pat: np.ndarray) -> dict:
-    P, _ = swar.pattern_words(pat)
-    return {"swar_p": P}
-
-
 @register_matcher
 class NaiveMatcher(Matcher):
-    """Vectorized shift-AND window compare (SURVEY.md R1).
-
-    TPU execution: full-verify SWAR Pallas kernel (kernels/swar.py); the
-    jnp shifted-compare path serves CPU, small inputs, and the kernel's
-    tail region.
-    """
+    """Vectorized shifted-compare window match (SURVEY.md R1)."""
 
     name = "naive"
-
-    def _precompute(self, pat: np.ndarray) -> dict:
-        return _swar_tables(pat)
-
-    @classmethod
-    def _direct(cls, text, words, n, pattern, tables_, config: MatchConfig):
-        m = pattern.shape[0]
-        if not _pallas_enabled(config, m):
-            return None
-        # Pass the traced logical n (NOT the padded text.shape[0]): the
-        # kernel clamps n_k = min(n, Nk) and bakes the validity limit into
-        # both the nibble mask and the block sums, which emission trusts
-        # verbatim when bsums are supplied.  Padded-N here let NUL-suffixed
-        # patterns falsely match inside the zero-padding tail.
-        x2d = reconstruct.full_words2d(text, words)
-        nib, bsums, cut = swar.naive_nib(
-            text, n, tables_["swar_p"], m,
-            chunk_bytes=config.pallas_chunk_bytes,
-            interpret=config.interpret, words=x2d,
-            emit_nib=config.emission != "sparse",
-        )
-        if cut == 0:
-            return None
-        tail = naive_ops.naive_start_mask(text[cut:], pattern)
-        if nib is None:
-            limit_k = jnp.minimum(n - m, cut - 1)
-            c1, o1, v1 = reconstruct.extract_region(
-                bsums, x2d, text, n, tables_["swar_p"], m, limit_k,
-                config.capacity, config,
-            )
-            return cls._merge_tail(c1, o1, v1, cut, n, m, tail, config)
-        return cls._merge_nib_tail(nib.reshape(-1), cut, n, m, tail, config,
-                                   bsums=bsums)
 
     @staticmethod
     def _mask(text, pattern, tables_, config: MatchConfig):
@@ -97,156 +34,18 @@ class NaiveMatcher(Matcher):
 class RabinKarpMatcher(Matcher):
     """Wrapping-mod-2**32 polynomial hash screen + exact verify (SURVEY.md R2).
 
-    TPU execution: the rolling-hash Pallas kernel (kernels/rk_roll.py) —
-    a true O(1)/byte roll with the departing byte read at a static lag
-    through a front pad, emitting candidate nibbles/block-sums that the
-    window-compare sparse reconstruction verifies exactly
-    (ops/reconstruct.extract_region).  The jnp shift-chain hash serves
-    CPU/small inputs and the multi-pattern shared-hash path
-    (models/multi.py).
+    The shift-chain hash (ops/rabin_karp.py) also serves the multi-pattern
+    shared-hash path (models/multi.py).
     """
 
     name = "rabin_karp"
-
-    @classmethod
-    def _tile_bytes(cls, config: MatchConfig) -> int:
-        # The sub-chunk-serial kernels use the full configured chunk
-        # (16384 default -> 2 MiB tiles), unlike the SWAR kernels' 4096
-        # clamp.
-        return 128 * config.pallas_chunk_bytes
 
     def _precompute(self, pat: np.ndarray) -> dict:
         c = tables.rk_constants(len(pat), self.config.rk_base)
         return {
             "powers": c["powers"],
             "pattern_hash": tables.rk_hash(pat, c),
-            **_swar_tables(pat),
         }
-
-    @staticmethod
-    def _verify_region(text, nib, limit_k, n_cand, small_pos, pattern,
-                       powers, phash, config: MatchConfig):
-        """(count, offsets, overflow) for the kernel region: tiered exact
-        verification of the rolling-hash candidate nibble for ONE pattern.
-        ``n_cand``/``small_pos`` come from a shared nibble prepass (for the
-        multi-pattern matcher the candidate set is the union over
-        patterns, so extra candidates simply fail this pattern's verify)."""
-        import jax
-        import jax.numpy as jnp
-
-        from ..ops import emit as _emit
-
-        N = text.shape[0]
-        m = pattern.shape[0]
-        vcap = config.verify_capacity
-        small = min(4096, vcap)
-        padded = jnp.pad(text, (0, m))
-
-        def verify_at(idx, cap):
-            # window gather -> exact verify; verified positions are already
-            # ascending.  The gather cost scales with ``cap``.
-            windows = padded[idx[:, None] + jnp.arange(m)[None, :]]
-            ok = jnp.all(windows == pattern[None, :], axis=1) & (idx < N)
-            c1 = jnp.sum(ok, dtype=jnp.int32)
-            ranks = jnp.cumsum(ok, dtype=jnp.int32) - 1
-            slot = jnp.where(ok, ranks, config.capacity + cap
-                             + jnp.arange(cap, dtype=jnp.int32))
-            o1 = (
-                jnp.full((config.capacity,), -1, jnp.int32)
-                .at[slot]
-                .set(idx, mode="drop", unique_indices=True)
-            )
-            return c1, o1, jnp.bool_(False)
-
-        def fast_small(_):
-            return verify_at(jnp.where(small_pos >= 0, small_pos, N), small)
-
-        def fast_big(_):
-            # Count-tiered window gather (the rank-select inside
-            # nibble_positions is already tiered): verifying n_cand
-            # candidates at the full configured vcap paid per-row gather
-            # cost for rows that are all fill.
-            idx = _emit.nibble_positions(nib, limit_k, vcap, fill=N)
-            return _emit.tiered_by_count(
-                lambda cap: verify_at(idx[:cap], cap), n_cand, vcap,
-                floor=small,
-            )
-
-        def slow(_):
-            # pathological candidate overflow: fall back to the exact jnp
-            # screen+verify over the kernel region (counts stay exact).
-            mask = rk_ops.rk_start_mask(text, pattern, powers, phash, vcap)
-            mask = mask & (jnp.arange(N, dtype=jnp.int32) <= limit_k)
-            return _emit.mask_to_matches(mask, config.capacity)
-
-        return jax.lax.cond(
-            n_cand <= small,
-            fast_small,
-            lambda _: jax.lax.cond(n_cand <= vcap, fast_big, slow,
-                                   operand=None),
-            operand=None,
-        )
-
-    @classmethod
-    def _direct(cls, text, words, n, pattern, tables_, config: MatchConfig):
-        m = pattern.shape[0]
-        if not (rk_roll.rk_roll_supported(m) and _pallas_backend_ok(config)):
-            return None
-        import jax.numpy as jnp
-
-        from ..ops import emit as _emit
-        from ..ops import tables as _t
-
-        base = config.rk_base if config.rk_base is not None else int(_t.RK_BASE)
-        bsums = None
-        x2d = reconstruct.full_words2d(text, words)
-        if config.emission == "sparse":
-            # Bsums-only screen: candidate counts per 512B block; the
-            # word-space sparse reconstruction verifies AND recounts
-            # (hash hits are not matches, so sum(bs) is untrusted).
-            bsums, cut = rk_roll.rk_candidate_bsums(
-                text, n,
-                tables_["pattern_hash"].reshape(1), m, base,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-            )
-        if bsums is not None:
-            limit_k = jnp.minimum(n - m, cut - 1)
-            c1, o1, v1 = reconstruct.extract_region(
-                bsums, x2d, text, n, tables_["swar_p"], m, limit_k,
-                config.capacity, config,
-            )
-        else:
-            # Sparse needs C % 4096 == 0; odd chunk sizes fall back to the
-            # nib-emission rolling-hash KERNEL, not to the dense jnp path.
-            nib, cut = rk_roll.rk_candidate_nib(
-                text, n,
-                tables_["pattern_hash"].reshape(1), m, base,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-            )
-            if nib is None:
-                return None
-            limit_k = jnp.minimum(n - m, cut - 1)
-            small = min(4096, config.verify_capacity)
-            # One prepass serves both the candidate count and the
-            # common-case (<= small) candidate positions.
-            n_cand, small_pos, _ = _emit.nibble_to_matches(
-                nib, limit_k, small
-            )
-            c1, o1, v1 = cls._verify_region(
-                text, nib, limit_k, n_cand, small_pos, pattern,
-                tables_["powers"], tables_["pattern_hash"], config,
-            )
-        tail = rk_ops.rk_start_mask(
-            text[cut:], pattern, tables_["powers"], tables_["pattern_hash"],
-            config.verify_capacity,
-        )
-        tail_valid = _emit.valid_start_mask(tail, n - cut, m)
-        c2, o2, v2 = _emit.mask_to_matches(tail_valid, config.capacity)
-        return _emit.merge_region_matches(
-            c1, o1, v1, c2, o2, v2, config.capacity, cut
-        )
 
     @staticmethod
     def _mask(text, pattern, tables_, config: MatchConfig):
@@ -261,120 +60,14 @@ class RabinKarpMatcher(Matcher):
 
 @register_matcher
 class KMPMatcher(Matcher):
-    """Branchless prefix-automaton scan (SURVEY.md R3, R8).
-
-    Three executions of the same automaton semantics:
-    - TPU, m <= 32: bit-parallel Shift-AND Pallas kernel — the branchless
-      ``D = ((D<<1)|1) & B[byte]`` step with per-byte dynamic_gather table
-      lookups (kernels/shift_and.py).
-    - TPU, m > 32 (``config.kmp_long='screen'``, default): the SAME K=1
-      kernel runs the prefix automaton of ``pattern[:32]`` as a candidate
-      SCREEN; the shared word-compare reconstruction re-verifies every
-      candidate against the full pattern (``extract_region`` recounts by
-      exact window compare in every branch), so the match set is
-      byte-identical to the full automaton at K=1 scan speed.  The K-word
-      carry-rippled automaton (m <= 256) remains via
-      ``config.kmp_long='ripple'``.
-    - Reference/CPU/very long patterns: dense-DFA
-      ``state = dfa[state, byte]`` lane-parallel lax.scan (ops/kmp.py).
-    """
+    """Branchless prefix-automaton scan (SURVEY.md R3, R8): the dense-DFA
+    ``state = dfa[state, byte]`` automaton in parallel lanes
+    (ops/kmp.py)."""
 
     name = "kmp"
 
-    # Screen-mode m bound: the dense-escalation branch inside
-    # extract_region rescans with the SWAR naive kernel, whose in-kernel
-    # halo covers m <= swar.MAX_PATTERN (509); the verify window itself
-    # (one following 1024-word row) would allow ~4000.  m > 509 falls back
-    # to the dense-DFA jnp path.
-    MAX_SCREEN_M = swar.MAX_PATTERN
-
-    @classmethod
-    def _tile_bytes(cls, config: MatchConfig) -> int:
-        return 128 * config.pallas_chunk_bytes
-
     def _precompute(self, pat: np.ndarray) -> dict:
-        # swar_p feeds the word-space sparse reconstruction's verify
-        # (reconstruct.extract_region), not a scan kernel.
-        t = {"dfa": tables.kmp_dfa(pat), **_swar_tables(pat)}
-        if shift_and.shift_and_supported(len(pat)):
-            t["sa_bt"] = shift_and.b_table(pat)
-        if 32 < len(pat) <= self.MAX_SCREEN_M:
-            t["sa_bt32"] = shift_and.b_table(pat[:32])
-        return t
-
-    @classmethod
-    def _screen_mode(cls, m: int, tables_, config: MatchConfig) -> bool:
-        return (
-            m > 32
-            and config.kmp_long == "screen"
-            and config.emission == "sparse"
-            and "sa_bt32" in tables_
-        )
-
-    @classmethod
-    def _direct(cls, text, words, n, pattern, tables_, config: MatchConfig):
-        m = pattern.shape[0]
-        screen = cls._screen_mode(m, tables_, config)
-        if not _pallas_backend_ok(config) or not (
-            screen
-            or (shift_and.shift_and_supported(m) and "sa_bt" in tables_)
-        ):
-            return None
-        bsums = nib = None
-        x2d = reconstruct.full_words2d(text, words)
-        if screen:
-            # Prefix-automaton candidate screen (see class docstring):
-            # bsums are per-block counts of pattern[:32] prefix starts — a
-            # candidate SUPERSET of the full-m match starts, made exact by
-            # extract_region's full-pattern window verify.  cut and
-            # limit_k use the FULL m so the region split stays correct.
-            # NOTE the kernel is called with m=32, so its IN-KERNEL
-            # validity clamp is n-32, not n-m: candidate starts in
-            # (n-m, n-32] are carried in these bsums and rejected only by
-            # extract_region's limit_k re-clamp.  Exactness therefore
-            # DEPENDS on the downstream clamp — a refactor that trusts
-            # bsums totals directly (or skips extract_region) would
-            # over-count near the text end for m > 32.
-            bsums, cut = shift_and.kmp_bsums(
-                text, n, tables_["sa_bt32"], 32,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-            )
-            if bsums is None and not (
-                shift_and.shift_and_supported(m) and "sa_bt" in tables_
-            ):
-                return None  # odd chunk size and no ripple fallback
-        if bsums is None and config.emission == "sparse" and "sa_bt" in tables_:
-            # Bsums-only scan: the end->start fold and validity live in
-            # VMEM; offsets come back via the word-space sparse
-            # reconstruction (== the automaton's match set exactly).
-            bsums, cut = shift_and.kmp_bsums(
-                text, n, tables_["sa_bt"], m,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-            )
-        if bsums is None:
-            # Sparse needs whole 512B blocks per sub-chunk (C % 4096); odd
-            # chunk sizes fall back to the nib-emission KERNEL, not to the
-            # dense-DFA path — the automaton still runs on-device.
-            nib, cut = shift_and.kmp_nib(
-                text, n, tables_["sa_bt"], m,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-            )
-            if nib is None:
-                return None
-        tail = kmp_ops.kmp_start_mask(
-            text[cut:], tables_["dfa"], config.kmp_chunk
-        )
-        if bsums is not None:
-            limit_k = jnp.minimum(n - m, cut - 1)
-            c1, o1, v1 = reconstruct.extract_region(
-                bsums, x2d, text, n, tables_["swar_p"], m, limit_k,
-                config.capacity, config,
-            )
-            return cls._merge_tail(c1, o1, v1, cut, n, m, tail, config)
-        return cls._merge_nib_tail(nib, cut, n, m, tail, config)
+        return {"dfa": tables.kmp_dfa(pat)}
 
     @staticmethod
     def _mask(text, pattern, tables_, config: MatchConfig):
@@ -391,38 +84,11 @@ class BoyerMooreMatcher(Matcher):
 
     name = "boyer_moore"
 
-    @classmethod
-    def _specialize_config(cls, config: MatchConfig,
-                           pat: np.ndarray) -> MatchConfig:
-        if config.bm_probes in ("table", "table_gs", "table_gs1"):
-            # ALWAYS recompute: a config recycled from a different-pattern
-            # matcher would otherwise carry that pattern's layout (out-of-
-            # range word indices for a shorter pattern -> trace-time
-            # IndexError; silently wrong probes for an equal-length one).
-            layout = swar.static_probes_from_table(
-                swar.probe_table(
-                    pat,
-                    use_gs=config.bm_probes in ("table_gs", "table_gs1"),
-                    single=config.bm_probes == "table_gs1",
-                )
-            )
-            if layout != config.bm_probe_layout:
-                return config.replace(bm_probe_layout=layout)
-        return config
-
     def _precompute(self, pat: np.ndarray) -> dict:
-        t = {
+        return {
             "bad_char": tables.bm_bad_char(pat),
             "good_suffix": tables.bm_good_suffix(pat),
-            **_swar_tables(pat),
         }
-        if self.config.bm_probes == "table_dyn":
-            # Bad-char-scored probe indices as RUNTIME scalars (same-
-            # length patterns share one executable at ~2x screen cost;
-            # the default 'table' mode bakes them in statically via
-            # _specialize_config and never reads this table).
-            t["swar_pr"] = swar.probe_table(pat)
-        return t
 
     @staticmethod
     def _mask(text, pattern, tables_, config: MatchConfig):
@@ -437,60 +103,3 @@ class BoyerMooreMatcher(Matcher):
         return bm_ops.bm_start_mask_filtered(
             text, pattern, config.verify_capacity
         )
-
-    @classmethod
-    def _direct(cls, text, words, n, pattern, tables_, config: MatchConfig):
-        if config.bm_variant == "cursor":
-            return None
-        m = pattern.shape[0]
-        if not _pallas_enabled(config, m):
-            return None
-        # Screened SWAR kernel: the probe screen is the vectorized
-        # bad-character heuristic; positions with no probe hit never reach
-        # verification.  The default bm_probes='table' bakes bad-char-
-        # scored probe indices (tables.bm_bad_char rarity) in as compile-
-        # time constants via the specialized config; 'table_dyn' ships
-        # them as runtime scalars.
-        # Logical n, not padded N — see NaiveMatcher._direct.
-        sparse = config.emission == "sparse"
-        # The candidate-screen kernel takes its probes as compile-time
-        # constants; bm_probes='table_dyn' exists precisely to avoid
-        # per-pattern executables, so honoring it means the FUSED dynamic
-        # kernel — silently dropping the user's probe choice (and running
-        # unscored positional probes) would be worse than the fused cost.
-        screen_only = (
-            sparse and config.bm_screen == "cand"
-            and config.bm_probes != "table_dyn"
-        )
-        x2d = reconstruct.full_words2d(text, words)
-        nib, bsums, cut = swar.screened_nib(
-            text, n, tables_["swar_p"], m,
-            chunk_bytes=config.pallas_chunk_bytes,
-            interpret=config.interpret, words=x2d,
-            probe_idx=(
-                tables_["swar_pr"] if config.bm_probes == "table_dyn"
-                else None
-            ),
-            static_probes=(
-                config.bm_probe_layout
-                if config.bm_probes in ("table", "table_gs")
-                else None
-            ),
-            emit_nib=not sparse,
-            screen_only=screen_only,
-        )
-        if cut == 0:
-            return None
-        tail = naive_ops.naive_start_mask(text[cut:], pattern)
-        if nib is None:
-            # Candidate or fused-verified block sums; the word-space
-            # reconstruction re-verifies and recounts either way — the
-            # same superset contract as the Rabin-Karp hash screen.
-            limit_k = jnp.minimum(n - m, cut - 1)
-            c1, o1, v1 = reconstruct.extract_region(
-                bsums, x2d, text, n, tables_["swar_p"], m, limit_k,
-                config.capacity, config,
-            )
-            return cls._merge_tail(c1, o1, v1, cut, n, m, tail, config)
-        return cls._merge_nib_tail(nib.reshape(-1), cut, n, m, tail, config,
-                                   bsums=bsums)

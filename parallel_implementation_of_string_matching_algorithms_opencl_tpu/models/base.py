@@ -18,14 +18,12 @@ import numpy as np
 from ..ops import emit
 from ..utils.config import DEFAULT_CONFIG, MatchConfig
 from ..utils.io import as_byte_array, pad_to_multiple
+from .backend import execution_path
 
 
 def valid_prefix(off: np.ndarray) -> np.ndarray:
     """Ascending valid prefix of a FILL-padded offset buffer: stop at the
-    first hole (negative entry).  A truncated screened gather can leave
-    holes MID-buffer (ungathered candidate blocks whose matches are
-    missing), and any entry after a hole may be preceded by missed
-    matches — trimming at the first hole keeps ``offsets`` a true prefix
+    first hole (negative entry), so ``offsets`` is always a true prefix
     of the global ascending match set."""
     bad = np.nonzero(off < 0)[0]
     return off[: bad[0]] if bad.size else off
@@ -38,8 +36,7 @@ class MatchResult:
     ``offsets`` is an ascending PREFIX of the real match set (overlapping
     occurrences included).  If ``overflow`` is True the prefix is
     incomplete — ``count`` is still exact but ``offsets`` holds only the
-    first ``len(offsets)`` matches (at most ``capacity``; possibly fewer
-    when a screened candidate gather truncated).  ``match_all`` /
+    first ``len(offsets)`` matches (at most ``capacity``).  ``match_all`` /
     ``drain=True`` recovers every offset.
     """
 
@@ -55,7 +52,8 @@ class MatchResult:
 
 
 class Matcher:
-    """Base matcher: subclass with ``name``, ``_precompute`` and ``_mask``."""
+    """Base matcher: subclass with ``name``, ``_precompute`` and
+    ``_mask``."""
 
     name = "base"
 
@@ -65,22 +63,11 @@ class Matcher:
         self.pattern_bytes = bytes(pattern)
         self.m = len(pattern)
         pat = np.frombuffer(self.pattern_bytes, dtype=np.uint8)
-        # Per-pattern config specialization (e.g. BM probe layout baked as
-        # kernel constants).  The specialized config is what must key every
-        # jit cache / runner build — use ``matcher.config``, not the config
-        # object the caller constructed.
-        self.config = self._specialize_config(config, pat)
+        self.config = config
         self.pattern_arr = pat
         self.tables = self._precompute(pat)
 
     # -- subclass hooks -----------------------------------------------------
-
-    @classmethod
-    def _specialize_config(cls, config: MatchConfig,
-                           pat: np.ndarray) -> MatchConfig:
-        """Stamp concrete per-pattern compile-time choices into the config
-        (hashable; keys the jit caches).  Default: unchanged."""
-        return config
 
     def _precompute(self, pat: np.ndarray) -> dict:
         """Host-side table precompute; returns a dict of numpy arrays that is
@@ -90,60 +77,15 @@ class Matcher:
 
     @staticmethod
     def _mask(text, pattern, tables, config: MatchConfig):
-        """Traced start-mask computation; must be overridden."""
+        """Traced start-mask computation (plain ``jax.numpy``); must be
+        overridden."""
         raise NotImplementedError
 
     @classmethod
-    def _direct(cls, text, words, n, pattern, tables, config: MatchConfig):
-        """Optional fast path: return (count, offsets, overflow) directly
-        (e.g. kernel nibble-mask emission, ops/emit.nibble_to_matches), or
-        None to use the _mask + emit route.  ``words`` is the int32 view
-        of the text buffer (host-provided; device repack costs ~60ms/256MB)
-        or None."""
-        return None
-
-    # -- shared kernel-region + tail merge for _direct implementations ----
-
-    @staticmethod
-    def _merge_tail(c1, o1, v1, cut, n, m, tail_mask, config: MatchConfig):
-        """Merge an already-extracted kernel region [0, cut) with a bool
-        tail mask over [cut, N)."""
-        from ..ops import emit as _emit
-
-        if tail_mask.shape[0] == 0:
-            # Tile-multiple padding can make the kernel own everything
-            # (cut == N for m == 1); the tail is then empty by shape.
-            return c1, o1, v1
-        tail_valid = _emit.valid_start_mask(tail_mask, n - cut, m)
-        # Tail capacity is bounded by the tail's own length (<= one tile
-        # after tile-multiple padding): a statically small buffer keeps
-        # both the extraction and the merge scatter off the full-capacity
-        # floor (~1 ms of fixed epilogue cost, measured).
-        cap2 = min(config.capacity, tail_mask.shape[0])
-        if tail_mask.shape[0] <= (1 << 21):
-            c2, o2, v2 = _emit.mask_to_matches_sorted(tail_valid, cap2)
-        else:
-            c2, o2, v2 = _emit.mask_to_matches(tail_valid, cap2)
-        return _emit.merge_region_matches(
-            c1, o1, v1, c2, o2, v2, config.capacity, cut
-        )
-
-    @classmethod
-    def _merge_nib_tail(cls, nib, cut, n, m, tail_mask, config: MatchConfig,
-                        bsums=None):
-        """Combine a kernel region [0, cut) with a bool tail mask over
-        [cut, N) into the final (count, offsets, overflow).  ``nib`` is the
-        flattened word-order nibble plane (emission='nib' path); ``bsums``
-        (kernel-computed block popcounts, limit already applied in-kernel)
-        let emission skip its full-mask prepass.  The sparse (bsums-only)
-        path goes through ops/reconstruct.extract_region instead."""
-        from ..ops import emit as _emit
-
-        limit_k = jnp.minimum(n - m, cut - 1)
-        c1, o1, v1 = _emit.nibble_to_matches(
-            nib, limit_k, config.capacity, bsums=bsums
-        )
-        return cls._merge_tail(c1, o1, v1, cut, n, m, tail_mask, config)
+    def _start_mask(cls, text, pattern, tables, config: MatchConfig):
+        """The start mask on the path models/backend chooses."""
+        execution_path()
+        return cls._mask(text, pattern, tables, config)
 
     # -- execution ----------------------------------------------------------
 
@@ -155,11 +97,8 @@ class Matcher:
         fn = Matcher._jit_cache.get(key)
         if fn is None:
 
-            def run(text, words, n, pattern, tables):
-                direct = cls._direct(text, words, n, pattern, tables, config)
-                if direct is not None:
-                    return direct
-                mask = cls._mask(text, pattern, tables, config)
+            def run(text, n, pattern, tables):
+                mask = cls._start_mask(text, pattern, tables, config)
                 mask = emit.valid_start_mask(mask, n, pattern.shape[0])
                 return emit.mask_to_matches(mask, config.capacity)
 
@@ -169,8 +108,9 @@ class Matcher:
 
     def start_mask(self, text: jnp.ndarray) -> jnp.ndarray:
         """Raw traced mask (testing hook) — no validity trimming."""
-        return type(self)._mask(
-            text, jnp.asarray(self.pattern_arr), jax.tree.map(jnp.asarray, self.tables), self.config
+        return type(self)._start_mask(
+            text, jnp.asarray(self.pattern_arr),
+            jax.tree.map(jnp.asarray, self.tables), self.config,
         )
 
     def match_all(self, data) -> MatchResult:
@@ -186,8 +126,8 @@ class Matcher:
         derived from the exact global count (exact even on overflow):
         ~capacity/2 expected matches per window, so the drain costs
         ~2·count/capacity dispatches — not O(n/capacity) blind walking.  A
-        window that still overflows (locally dense matches, or the RK
-        screened candidate-block case) splits in half until it fits; a
+        window that still overflows (locally dense matches) splits in half
+        until it fits; a
         ``capacity``-byte window holds at most ``capacity`` start positions
         and therefore always terminates the recursion.
         """
@@ -242,56 +182,15 @@ class Matcher:
             np.concatenate(parts) if parts else np.empty(0, np.int64)
         )
 
-    @classmethod
-    def _tile_bytes(cls, config: MatchConfig) -> int:
-        """Kernel grid-tile size: padding the text to a tile multiple makes
-        the kernel cover (almost) everything and shrinks the jnp-scanned
-        tail to the last m-1 bytes plus padding."""
-        return 128 * min(config.pallas_chunk_bytes, 4096)
-
-    def _pad_target(self, n: int) -> int:
-        """Pad-to multiple for ``match``: always word-row aligned (the
-        (N/4096, 1024) int32 view must exist), tile-aligned once the input
-        is kernel-sized."""
-        from ..kernels import swar as _swar
-
-        tile = self._tile_bytes(self.config) if n >= _swar.MIN_KERNEL_BYTES \
-            else 4096
-        return int(np.lcm(self.config.pad_multiple, tile))
-
-    def _aot_enabled(self, n: int) -> bool:
-        """Route through the cross-process AOT executable cache
-        (utils/aot.py) when the compile is worth persisting: kernel-sized
-        text on a real accelerator backend (sub-MB executables compile in
-        well under a second; CPU-mesh tests churn shapes constantly)."""
-        from ..kernels import swar as _swar
-
-        return (
-            n >= _swar.MIN_KERNEL_BYTES
-            and jax.default_backend() not in ("cpu",)
-            and not self.config.interpret
-        )
-
     def match(self, data) -> MatchResult:
-        from ..utils import aot
-
         arr = as_byte_array(data)
         n = len(arr)
-        padded = pad_to_multiple(arr, self._pad_target(n))
-        count, offsets, overflow = aot.call(
-            self._runner(self.config),
-            (
-                jnp.asarray(padded),
-                # Same bytes as a zero-copy (N/4096, 1024) int32 host view
-                # — pre-shaped so the kernels and the sparse reconstruction
-                # never pay an in-jit 1-D -> 2-D relayout (kernels/swar.py
-                # module docstring, round-3 feed rework).
-                jnp.asarray(padded.view(np.int32).reshape(-1, 1024)),
-                jnp.int32(n),
-                jnp.asarray(self.pattern_arr),
-                self.tables,
-            ),
-            enabled=self._aot_enabled(n),
+        padded = pad_to_multiple(arr, self.config.pad_multiple)
+        count, offsets, overflow = self._runner(self.config)(
+            jnp.asarray(padded),
+            jnp.int32(n),
+            jnp.asarray(self.pattern_arr),
+            self.tables,
         )
         count = int(count)
         kept = min(count, self.config.capacity)

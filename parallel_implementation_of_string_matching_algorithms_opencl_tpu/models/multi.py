@@ -17,6 +17,7 @@ from ..ops import rabin_karp as rk_ops
 from ..ops import tables
 from ..utils.config import DEFAULT_CONFIG, MatchConfig
 from ..utils.io import as_byte_array, pad_to_multiple
+from .backend import execution_path
 from .base import MatchResult, valid_prefix
 
 
@@ -45,18 +46,10 @@ class RabinKarpMultiMatcher:
         self.pattern_arr = np.stack(
             [np.frombuffer(p, dtype=np.uint8) for p in self.patterns]
         )
-        from ..kernels import swar as _swar
-
         self.tables = {
             "powers": consts["powers"],
             "hashes": np.array(
                 [tables.rk_hash(p, consts) for p in self.patterns], dtype=np.uint32
-            ),
-            # int32[k, 4, nw] SWAR words: the word-space verify tables for
-            # the shared candidate-block reconstruction (ops/reconstruct
-            # .extract_region_multi).
-            "swar_ps": np.stack(
-                [_swar.pattern_words(p)[0] for p in self.pattern_arr]
             ),
         }
 
@@ -66,12 +59,7 @@ class RabinKarpMultiMatcher:
         fn = cls._jit_cache.get(key)
         if fn is None:
 
-            def run(text, words, n, patterns, tables_):
-                direct = cls._multi_direct(
-                    text, words, n, patterns, tables_, config
-                )
-                if direct is not None:
-                    return direct
+            def run(text, n, patterns, tables_):
                 masks = cls._multi_masks(text, patterns, tables_, config)
                 m = patterns.shape[1]
                 counts, offsets, overflows = [], [], []
@@ -91,226 +79,12 @@ class RabinKarpMultiMatcher:
             cls._jit_cache[key] = fn
         return fn
 
-    @classmethod
-    def _runner_union(cls, config: MatchConfig, k: int):
-        """Union-emission runner (single-device fast path): returns
-        (counts[k], upos[capacity], uval[capacity], overflows[k],
-        tail_offsets[k, cap2]) — the k per-pattern capacity-sized
-        compaction sorts are SKIPPED on device; ``match`` splits the
-        sorted union per pattern on the host (an order-preserving np
-        compress, microseconds) and rebases the tail.  Only ``match``
-        uses this; the distributed/streaming paths keep ``_runner``'s
-        stacked contract their collectives and journals consume."""
-        key = (cls, config, k, "union")
-        fn = cls._jit_cache.get(key)
-        if fn is None:
-
-            def run(text, words, n, patterns, tables_):
-                out = cls._multi_direct(
-                    text, words, n, patterns, tables_, config,
-                    emit="union",
-                )
-                assert out is not None, (
-                    "_runner_union called outside its eligibility "
-                    "envelope (see _union_eligible)"
-                )
-                return out
-
-            fn = jax.jit(run)
-            cls._jit_cache[key] = fn
-        return fn
-
-    def _union_eligible(self, padded_len: int) -> bool:
-        """True when the union-emission fast path will engage: mirrors
-        _multi_direct's kernel-path preconditions (sparse emission, a
-        pmask/bsums-capable mode, kernel-eligible sizes) exactly, so the
-        union runner's direct path cannot come back None."""
-        from ..kernels import rk_roll
-        from ..kernels import swar as _swar
-        from .algorithms import _pallas_backend_ok
-
-        cfg = self.config
-        if cfg.emission != "sparse" or self.k > 31:
-            return False
-        if cfg.multi_gather == "groups" and \
-                _swar.mask_words(self.m).shape[1] <= 9:
-            return False  # groups mode has no union emission
-        if not (rk_roll.rk_roll_supported(self.m)
-                and _pallas_backend_ok(cfg)):
-            return False
-        C = cfg.pallas_chunk_bytes
-        if C % 4096:
-            return False
-        tile = 128 * C
-        Nk = (padded_len // tile) * tile
-        return Nk >= max(tile, _swar.MIN_KERNEL_BYTES)
-
-    @staticmethod
-    def _multi_direct(text, words, n, patterns, tables_, config: MatchConfig,
-                      emit: str = "stacked"):
-        """Stacked (counts, offsets, overflows) via the kernel screen.
-
-        ONE rolling-hash kernel pass compares against all k pattern hashes
-        (kernels/rk_roll.py); the union candidate nibble is verified per
-        pattern with the shared tiered verifier — a candidate that belongs
-        to another pattern simply fails this pattern's window compare.
-        Returns None off-TPU / below the kernel threshold.
-        """
-        from ..kernels import rk_roll
-        from ..kernels import swar as _swar
-        from ..ops import emit as _emit
-        from .algorithms import RabinKarpMatcher, _pallas_backend_ok
-
-        m = patterns.shape[1]
-        k = patterns.shape[0]
-        if not (rk_roll.rk_roll_supported(m) and _pallas_backend_ok(config)):
-            return None
-        base = (
-            config.rk_base if config.rk_base is not None else int(tables.RK_BASE)
-        )
-        from ..ops import reconstruct
-
-        sparse = config.emission == "sparse"
-        x2d = reconstruct.full_words2d(text, words)
-        # Group-granular extraction (round 5): the kernel emits 16-bit
-        # sub-block occupancy masks and the reconstruction verifies only
-        # each candidate block's occupied 32-byte group — gated on the
-        # compare chain fitting the 16-word group slab (m <= 33).
-        use_groups = (
-            config.multi_gather == "groups"
-            and _swar.mask_words(m).shape[1] <= 9
-        )
-        # Pattern-selected extraction (round 5, default): the kernel
-        # emits k-bit per-block PATTERN-HIT masks and each single-pattern
-        # candidate block verifies against only its flagged pattern —
-        # k-fold less verify ALU than the all-patterns block path.
-        # Holds one pattern per int32 bit, so k <= 31 (larger sets run
-        # the 31-pattern groups of the block path below).
-        use_pselect = (
-            config.multi_gather == "pselect" and k <= 31 and not use_groups
-        )
-        if sparse:
-            # ONE bsums-only screen pass over all k hashes; the shared
-            # candidate-block reconstruction verifies every pattern against
-            # the gathered blocks in word space and extracts the union
-            # positions + membership payload with one sort-pair
-            # (ops/reconstruct.extract_region_multi[_groups|_pselect]).
-            bs, cut = rk_roll.rk_candidate_bsums(
-                text, n, tables_["hashes"], m, base,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-                emit=("bmask" if use_groups
-                      else "pmask" if use_pselect else "bsums"),
-            )
-            if bs is None:
-                return None
-        else:
-            nib, cut = rk_roll.rk_candidate_nib(
-                text, n, tables_["hashes"], m, base,
-                chunk_bytes=config.pallas_chunk_bytes,
-                interpret=config.interpret, words=x2d,
-            )
-            if nib is None:
-                return None
-        limit_k = jnp.minimum(n - m, cut - 1)
-        if not sparse:
-            small = min(4096, config.verify_capacity)
-            n_cand, small_pos, _ = _emit.nibble_to_matches(
-                nib, limit_k, small
-            )
-        tail_masks = rk_ops.rk_multi_start_masks(
-            text[cut:], patterns, tables_["powers"], tables_["hashes"],
-            config.verify_capacity,
-        )
-        if sparse:
-            # Payload planes hold one pattern per int32 bit (sign bit
-            # excluded) — larger sets run the shared-candidate extraction
-            # in groups of 31 against the same union screen; a candidate
-            # belonging to another group simply fails this group's verify.
-            GROUP = 31
-            extract_fn = (
-                reconstruct.extract_region_multi_groups if use_groups
-                else reconstruct.extract_region_multi_pselect
-                if use_pselect else reconstruct.extract_region_multi
-            )
-            if emit == "union":
-                assert k <= GROUP and not use_groups, \
-                    "union emission holds one 31-pattern group"
-                counts_u, upos, uval, vs1 = extract_fn(
-                    bs, x2d, text, n, patterns, tables_["swar_ps"],
-                    limit_k, config.capacity, config, emit_union=True,
-                )
-                cap2 = min(config.capacity, int(tail_masks.shape[1]))
-                if tail_masks.shape[1] == 0:
-                    return (counts_u, upos, uval, vs1,
-                            jnp.zeros((k, 0), jnp.int32))
-                t_counts, t_offs, t_vs = [], [], []
-                for p in range(k):
-                    tail_valid = _emit.valid_start_mask(
-                        tail_masks[p], n - cut, m
-                    )
-                    if tail_masks.shape[1] <= (1 << 21):
-                        c2, o2, v2 = _emit.mask_to_matches_sorted(
-                            tail_valid, cap2
-                        )
-                    else:
-                        c2, o2, v2 = _emit.mask_to_matches(tail_valid, cap2)
-                    t_counts.append(c2)
-                    t_offs.append(o2)
-                    t_vs.append(v2)
-                return (counts_u + jnp.stack(t_counts), upos, uval,
-                        vs1 | jnp.stack(t_vs), jnp.stack(t_offs))
-            parts = [
-                extract_fn(
-                    bs, x2d, text, n, patterns[g : g + GROUP],
-                    tables_["swar_ps"][g : g + GROUP], limit_k,
-                    config.capacity, config,
-                )
-                for g in range(0, k, GROUP)
-            ]
-            cs1 = jnp.concatenate([p[0] for p in parts])
-            os1 = jnp.concatenate([p[1] for p in parts])
-            vs1 = jnp.concatenate([p[2] for p in parts])
-        counts, offsets, overflows = [], [], []
-        # Tail buffers sized to the TAIL, not config.capacity (mirrors
-        # Matcher._merge_tail): after tile-multiple padding the tail is
-        # ~m-1 bytes, but a capacity-sized mask_to_matches pads its sort
-        # to `capacity` PER PATTERN — measured 19.7 ms of the config-2
-        # epilogue at 256 MiB/k=8/cap=2^19 (exp/multi_breakdown.py) for a
-        # 15-byte tail.
-        cap2 = min(config.capacity, int(tail_masks.shape[1]))
-        for p in range(k):
-            if sparse:
-                c1, o1, v1 = cs1[p], os1[p], vs1[p]
-            else:
-                c1, o1, v1 = RabinKarpMatcher._verify_region(
-                    text, nib, limit_k, n_cand, small_pos, patterns[p],
-                    tables_["powers"], tables_["hashes"][p], config,
-                )
-            if tail_masks.shape[1] == 0:
-                c, o, v = c1, o1, v1
-            else:
-                tail_valid = _emit.valid_start_mask(
-                    tail_masks[p], n - cut, m
-                )
-                if tail_masks.shape[1] <= (1 << 21):
-                    c2, o2, v2 = _emit.mask_to_matches_sorted(
-                        tail_valid, cap2
-                    )
-                else:
-                    c2, o2, v2 = _emit.mask_to_matches(tail_valid, cap2)
-                c, o, v = _emit.merge_region_matches(
-                    c1, o1, v1, c2, o2, v2, config.capacity, cut
-                )
-            counts.append(c)
-            offsets.append(o)
-            overflows.append(v)
-        return jnp.stack(counts), jnp.stack(offsets), jnp.stack(overflows)
-
     @staticmethod
     def _multi_masks(text, patterns, tables_, config: MatchConfig):
-        """bool[k, N] exact start masks — the jnp shared-hash pass
-        (ops/rabin_karp.rk_multi_start_masks); CPU/fallback path."""
+        """bool[k, N] exact start masks — the shared-hash pass
+        (ops/rabin_karp.rk_multi_start_masks) on the path models/backend
+        chooses."""
+        execution_path()
         return rk_ops.rk_multi_start_masks(
             text,
             patterns,
@@ -320,34 +94,14 @@ class RabinKarpMultiMatcher:
         )
 
     def match(self, data) -> list[MatchResult]:
-        from ..kernels import swar as _swar
-        from ..utils import aot
-
         arr = as_byte_array(data)
         n = len(arr)
-        padded = pad_to_multiple(
-            arr, int(np.lcm(self.config.pad_multiple, 4096))
-        )
-        args = (
+        padded = pad_to_multiple(arr, self.config.pad_multiple)
+        counts, offsets, overflows = self._runner(self.config, self.k)(
             jnp.asarray(padded),
-            jnp.asarray(padded.view(np.int32).reshape(-1, 1024)),
             jnp.int32(n),
             jnp.asarray(self.pattern_arr),
             self.tables,
-        )
-        aot_on = (
-            n >= _swar.MIN_KERNEL_BYTES
-            and jax.default_backend() not in ("cpu",)
-            and not self.config.interpret
-        )
-        if self._union_eligible(len(padded)):
-            return self._assemble_union(
-                aot.call(self._runner_union(self.config, self.k), args,
-                         enabled=aot_on),
-                n, len(padded),
-            )
-        counts, offsets, overflows = aot.call(
-            self._runner(self.config, self.k), args, enabled=aot_on
         )
         counts = np.asarray(counts)
         offsets = np.asarray(offsets)
@@ -357,42 +111,6 @@ class RabinKarpMultiMatcher:
             c = int(counts[p])
             kept = min(c, self.config.capacity)
             offs = valid_prefix(offsets[p][:kept])
-            out.append(
-                MatchResult(
-                    algo=self.name,
-                    pattern=self.patterns[p],
-                    n=n,
-                    count=c,
-                    offsets=offs,
-                    overflow=bool(overflows[p]) or len(offs) < c,
-                )
-            )
-        return out
-
-    def _assemble_union(self, dev_out, n: int, padded_len: int):
-        """Host-side per-pattern split of the union-emission result:
-        ``upos`` is ascending with membership bits in ``uval`` (zeroed on
-        fill slots), so each pattern's region offsets are one np compress
-        — order-preserving, no device sorts; the tiny tail buffers rebase
-        by the kernel coverage cut."""
-        counts, upos, uval, overflows, tail_offs = (
-            np.asarray(a) for a in dev_out
-        )
-        C = self.config.pallas_chunk_bytes
-        tile = 128 * C
-        Nk = (padded_len // tile) * tile
-        cut = Nk - (self.m - 1) if self.m > 1 else Nk
-        out = []
-        for p in range(self.k):
-            c = int(counts[p])
-            if bool(overflows[p]):
-                offs = np.empty((0,), np.int64)
-            else:
-                sel = upos[((uval >> p) & 1) == 1].astype(np.int64)
-                t = tail_offs[p]
-                offs = np.concatenate(
-                    [sel, t[t >= 0].astype(np.int64) + cut]
-                )
             out.append(
                 MatchResult(
                     algo=self.name,

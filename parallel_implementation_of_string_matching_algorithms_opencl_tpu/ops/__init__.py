@@ -1,8 +1,7 @@
-"""Compute ops: table precompute, start-mask kernels, offset emission.
+"""Compute ops: table precompute, start masks, offset emission.
 
-The jnp implementations in this package are the semantic ground truth and
-the CPU/portable path; ``ops.kernels`` holds the Pallas TPU kernels that
-replace the hot inner scans behind the same mask contract.
+The ``jax.numpy`` implementations in this package are the semantic ground
+truth and the one execution path: XLA compiles them for the GPU and the CPU.
 """
 
 from . import boyer_moore, emit, kmp, naive, rabin_karp, tables  # noqa: F401

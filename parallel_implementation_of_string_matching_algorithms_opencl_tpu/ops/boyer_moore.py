@@ -1,6 +1,6 @@
 """Boyer-Moore matcher op — jnp compute path, two execution strategies.
 
-TPU-native redesign of the reference's Boyer-Moore OpenCL kernel (SURVEY.md
+JAX redesign of the reference's Boyer-Moore OpenCL kernel (SURVEY.md
 component R4, BASELINE.json:5 "skip-loop for BM").  Both strategies use the
 classic bad-character + good-suffix tables (ops/tables) and produce the same
 exact start mask; they differ in how BM's *data-dependent skipping* is mapped
@@ -9,10 +9,9 @@ onto a vector machine (SURVEY.md §7.4 hard part #5):
 - ``filtered`` (default, fast): BM's last-character heuristic vectorized.
   A cheap probe screen (last, first, middle pattern bytes — 3 vector passes
   instead of m) produces a candidate mask; candidates are exactly verified
-  via a fixed-capacity window gather.  This is the TPU-native translation of
-  the skip loop: instead of one cursor skipping bytes, the whole tile skips
-  the expensive verify when the screen is empty (the Pallas kernel makes the
-  skip literal with ``@pl.when`` at tile granularity).
+  via a fixed-capacity window gather.  This is the vector translation of
+  the skip loop: instead of one cursor skipping bytes, positions the screen
+  rejects never reach the expensive verify.
 
 - ``cursor`` (honest skip-loop): L lane cursors, each owning a C-byte chunk,
   advance under a ``lax.while_loop`` by ``max(bad_char, good_suffix)`` shifts

@@ -1,9 +1,9 @@
 """Fixed-capacity match-offset emission (SURVEY.md §7.3 stage 2, hard part #1).
 
-TPU/XLA has no dynamic shapes, so "return the list of match offsets" becomes
+XLA has no dynamic shapes, so "return the list of match offsets" becomes
 "return a fixed-capacity int32 buffer + a count + an overflow flag".  This is
-the TPU-native equivalent of the reference's per-work-item result buffer
-readback (SURVEY.md component R12): one-pass padded emission.
+the JAX equivalent of the reference's per-work-item result buffer readback
+(SURVEY.md component R12): one-pass padded emission.
 
 All algorithm ops produce a boolean *start mask* over text positions
 (mask[i] == True iff a match starts at byte i); this module turns masks into
@@ -28,14 +28,9 @@ def mask_to_matches(mask: jnp.ndarray, capacity: int):
     Returns (count:int32 scalar, offsets:int32[capacity] sorted with -1 pad,
     overflow:bool scalar).
 
-    Extraction is cumsum + unique-index scatter, NOT ``jnp.nonzero(size=)``:
-    the latter lowers to a full O(N log N) sort on TPU (~2.4 s for 256 MiB —
-    measured; it dominated the whole pipeline).  Here each masked position
-    writes itself at its rank; every update index is globally unique
-    (ranks < N for matches; a disjoint N+capacity+pos band for the rest,
-    all dropped as out-of-bounds), so XLA emits the vectorized scatter.
-    Output order is ascending by construction (rank increases with
-    position).
+    Extraction is a rank-select (``_rank_select_bool``) whose cost scales
+    with the offset capacity, not ``jnp.nonzero(size=)``, which sorts all
+    N positions.  Output order is ascending by construction.
     """
     n = mask.shape[0]
     count = jnp.sum(mask, dtype=jnp.int32)
@@ -46,7 +41,7 @@ def mask_to_matches(mask: jnp.ndarray, capacity: int):
 
 
 # Extraction cost scales with the rank count extracted (the per-rank row
-# gather dominates, ~0.2 us/rank on v5e); most runs have far fewer matches
+# gather dominates); most runs have far fewer matches
 # than the offset capacity, so run the extraction at the smallest rank tier
 # that fits the runtime count.  The x4 ladder bounds the waste at 4x the
 # count while keeping the lax.switch branch count (= trace size) small.
@@ -73,17 +68,12 @@ def tiered_by_count(fn, count, capacity: int, floor: int = _SMALL_CAP):
     return jax.lax.switch(bucket, [lambda t=t: fn(t) for t in tiers])
 
 
-def _adaptive(extract, count, capacity: int, fills=()):
+def _adaptive(extract, count, capacity: int):
     def at(t: int):
         out = extract(t)
         if t == capacity:
             return out
-        pad = lambda o, f: jnp.concatenate(
-            [o, jnp.full((capacity - t,), f, o.dtype)]
-        )
-        if isinstance(out, tuple):
-            return tuple(pad(o, f) for o, f in zip(out, fills))
-        return pad(out, FILL)
+        return jnp.concatenate([out, jnp.full((capacity - t,), FILL, out.dtype)])
 
     return tiered_by_count(at, count, capacity)
 
@@ -98,10 +88,9 @@ def _rank_to_block(bpre, bsum, nb: int, capacity: int):
     callers MUST mask on ``r < count``.
 
     Two lowerings, chosen statically: `searchsorted` binary-searches per
-    rank (~0.2-0.6 us/rank on v5e — it was ~80% of the whole rank-select
-    at 2^19 ranks, measured); the inverse map scatters each nonempty
-    block's id at its first rank and cummax-fills (~5 ns per BLOCK), which
-    wins whenever ranks aren't vastly outnumbered by blocks.
+    rank; the inverse map scatters each nonempty block's id at its first
+    rank and cummax-fills, which costs per block and wins whenever ranks
+    aren't vastly outnumbered by blocks.
     """
     if nb <= 64 * capacity:
         starts = bpre - bsum  # exclusive prefix = block's first rank
@@ -123,9 +112,8 @@ def _rank_select_bool(mask: jnp.ndarray, count, capacity: int):
     """offsets[r] = position of the r-th set bit (ascending, -1 padded).
 
     Rank-select by block prefix + rank->block map + per-rank row gather:
-    cost scales with ``capacity`` and one cheap reduction pass — a scatter
-    with one update per text position measures ~5 ns/update on TPU (1.3 s
-    for 256 MiB), and jnp.nonzero's sort is worse.
+    cost scales with ``capacity`` and one cheap reduction pass, instead of
+    a scatter with one update per text position or a sort of all of them.
     """
     n = mask.shape[0]
     B = _BLOCK
@@ -146,21 +134,6 @@ def _rank_select_bool(mask: jnp.ndarray, count, capacity: int):
     return jnp.where(r < count, pos, FILL)
 
 
-def mask_to_matches_sorted(mask: jnp.ndarray, capacity: int):
-    """(count, offsets[capacity], overflow) for a SMALL bool mask via one
-    sort (ops/extract economics: ~1-1.7 ns/element beats the per-rank
-    extractor's ~4096-rank tier floor).  Use when mask length is a few MB
-    at most — the kernel-region tail after tile-multiple padding."""
-    from . import extract
-
-    n = mask.shape[0]
-    count = jnp.sum(mask, dtype=jnp.int32)
-    keys = jnp.where(mask, jnp.arange(n, dtype=jnp.int32),
-                     jnp.int32(extract.INF))
-    offsets = extract.sort_keys_to_offsets(keys, capacity)
-    return count, offsets, count > capacity
-
-
 def masked_positions(mask: jnp.ndarray, capacity: int, fill: int = FILL):
     """First ``capacity`` positions where mask is True, ascending, padded
     with ``fill`` — same rank-select extraction as mask_to_matches."""
@@ -174,169 +147,3 @@ def valid_start_mask(mask: jnp.ndarray, n: jnp.ndarray, m: int) -> jnp.ndarray:
     they fall beyond ``n - m`` (padding / halo tail).  ``n`` may be traced."""
     pos = jnp.arange(mask.shape[0], dtype=jnp.int32)
     return mask & (pos <= n - m)
-
-
-# ---------------------------------------------------------------------------
-# Nibble-space emission: the Pallas kernels emit one int32 per 4 text bytes
-# (bit b of word w = match starting at byte 4w+b).  Extracting counts and
-# offsets directly from this representation avoids ever materializing the
-# bool[N] mask — on TPU a (N/4, 4)-shaped expansion acquires a padded
-# T(8,128) layout and a 32x memory blow-up (measured: 34 GB for 256 MiB).
-# ---------------------------------------------------------------------------
-
-
-def nibble_valid(nib: jnp.ndarray, limit) -> jnp.ndarray:
-    """Clear bits at byte positions > ``limit`` (int32[NW] nibbles)."""
-    word_pos = jnp.arange(nib.shape[0], dtype=jnp.int32) * 4
-    keep = jnp.clip(limit - word_pos + 1, 0, 4)
-    return nib & ((1 << keep) - 1)
-
-
-def nibble_to_matches(nib: jnp.ndarray, limit, capacity: int, bsums=None):
-    """(count, offsets[capacity], overflow) from an int32[NW] nibble mask.
-
-    ``limit``: maximum valid start position (apply n-m and any kernel
-    coverage cut).  ``bsums`` (int32[NW/128], optional): per-128-word-block
-    popcounts already computed BY THE KERNEL with the same limit applied —
-    skips this function's full-mask prepass (a read of the whole mask).
-    Rank-select extraction; output is ascending with -1 padding.
-    """
-    nw = nib.shape[0]
-    B = 128  # words per block — keep the minor dim a full 128-lane row
-    nb = -(-nw // B)
-    if bsums is None:
-        nib = nibble_valid(nib, limit)
-        if nw % B:
-            nib = jnp.pad(nib, (0, nb * B - nw))
-        pc = (nib & 1) + ((nib >> 1) & 1) + ((nib >> 2) & 1) + ((nib >> 3) & 1)
-        bsum = jnp.sum(pc.reshape(nb, B), axis=1, dtype=jnp.int32)
-    else:
-        assert nw % B == 0 and bsums.shape[0] == nb
-        bsum = bsums
-    count = jnp.sum(bsum, dtype=jnp.int32)
-    bpre = jnp.cumsum(bsum, dtype=jnp.int32)  # inclusive
-
-    def extract(cap):
-        r = jnp.arange(cap, dtype=jnp.int32)
-        bi_c = _rank_to_block(bpre, bsum, nb, cap)
-        prev = bpre[bi_c] - bsum[bi_c]
-        rows_nib = nib.reshape(nb, B)[bi_c]        # (cap, B)
-        rows_pc = (
-            (rows_nib & 1) + ((rows_nib >> 1) & 1)
-            + ((rows_nib >> 2) & 1) + ((rows_nib >> 3) & 1)
-        )
-        wcum = jnp.cumsum(rows_pc, axis=1)
-        r_in = r - prev
-        wi = jnp.sum((wcum <= r_in[:, None]).astype(jnp.int32), axis=1)
-        word_nib = jnp.take_along_axis(rows_nib, wi[:, None], axis=1)[:, 0]
-        before = jnp.where(
-            wi > 0,
-            jnp.take_along_axis(
-                wcum, jnp.maximum(wi - 1, 0)[:, None], axis=1
-            )[:, 0],
-            0,
-        )
-        r_w = r_in - before  # rank within the word (0..3)
-        c0 = word_nib & 1
-        c01 = c0 + ((word_nib >> 1) & 1)
-        c012 = c01 + ((word_nib >> 2) & 1)
-        bit = jnp.where(
-            r_w < c0, 0, jnp.where(r_w < c01, 1, jnp.where(r_w < c012, 2, 3))
-        )
-        pos = (bi_c * B + wi) * 4 + bit
-        return jnp.where(r < count, pos, FILL)
-
-    out = _adaptive(extract, count, capacity)
-    return count, out, count > capacity
-
-
-BLOCK_BYTES = 512  # kernel block-sum granularity (128 int32 words)
-
-def window_start_mask(windows: jnp.ndarray, pattern: jnp.ndarray):
-    """bool[B, L] start mask per gathered window row, L = row_len - m + 1.
-
-    Row-vectorized form of naive_start_mask (same unroll-vs-fori policy);
-    the exact-match ground truth for ANY algorithm's match set, which is
-    what makes block-sparse reconstruction algorithm-agnostic.
-    """
-    from .naive import UNROLL_LIMIT
-
-    B, row_len = windows.shape
-    m = pattern.shape[0]
-    L = row_len - m + 1
-    if m <= UNROLL_LIMIT:
-        mask = windows[:, 0:L] == pattern[0]
-        for j in range(1, m):
-            mask &= windows[:, j : j + L] == pattern[j]
-        return mask
-
-    def body(j, mask):
-        win = jax.lax.dynamic_slice(windows, (0, j), (B, L))
-        return mask & (win == pattern[j])
-
-    from . import vma as _vma
-
-    return jax.lax.fori_loop(
-        0, m, body, _vma.taint(jnp.ones((B, L), jnp.bool_), windows)
-    )
-
-
-def _dense_block_count(text: jnp.ndarray, pattern: jnp.ndarray, nb: int,
-                       limit) -> jnp.ndarray:
-    """Exact match count by window-comparing EVERY 512-byte block in
-    4096-block slabs (fori_loop) — the screened sparse path's fallback
-    when candidate blocks outnumber the gather capacity.  O(N*m) compute
-    but O(slab) memory; compiled into a cond branch that executes only on
-    adversarial (hash-collision-dense) inputs."""
-    L = BLOCK_BYTES
-    m = pattern.shape[0]
-    SLAB = 4096
-    nsl = -(-nb // SLAB)
-    row_len = L + m - 1
-    # Pad so every slab slice (including the one-block-shifted halo view)
-    # is in range: dynamic_slice clamps out-of-range starts BACKWARDS,
-    # which would re-scan earlier bytes and double-count.
-    need = nsl * SLAB * L + L
-    tp = jnp.pad(text, (0, max(0, need - text.shape[0])))
-    pos_row = jnp.arange(L, dtype=jnp.int32)[None, :]
-
-    def body(i, acc):
-        start = i * (SLAB * L)
-        win = jax.lax.dynamic_slice(
-            tp, (start,), (SLAB * L,)
-        ).reshape(SLAB, L)
-        halo = jax.lax.dynamic_slice(
-            tp, (start + L,), (SLAB * L,)
-        ).reshape(SLAB, L)  # row r = the block after win's row r
-        rows2 = jnp.concatenate([win, halo], axis=1)[:, :row_len]
-        sm = window_start_mask(rows2, pattern)
-        gpos = start + jnp.arange(SLAB, dtype=jnp.int32)[:, None] * L + pos_row
-        sm = sm & (gpos <= limit)
-        return acc + jnp.sum(sm, dtype=jnp.int32)
-
-    from . import vma as _vma
-
-    return jax.lax.fori_loop(0, nsl, body, _vma.taint(jnp.int32(0), text))
-
-
-def nibble_positions(nib: jnp.ndarray, limit, capacity: int, fill: int):
-    """First ``capacity`` set-bit byte positions (ascending, ``fill``-padded)
-    — candidate extraction for screen+verify pipelines."""
-    _, out, _ = nibble_to_matches(nib, limit, capacity)
-    return jnp.where(out >= 0, out, fill)
-
-
-def merge_region_matches(c1, o1, v1, c2, o2, v2, capacity: int, offset2):
-    """Merge (count, offsets, overflow) of a kernel region with a tail
-    region starting at byte ``offset2``; region-1 offsets all precede
-    region-2 offsets, so the merge is a shifted scatter append."""
-    cap2 = o2.shape[0]
-    o2g = jnp.where(o2 >= 0, o2 + offset2, -1)
-    idx2 = jnp.where(
-        o2 >= 0,
-        c1 + jnp.arange(cap2, dtype=jnp.int32),
-        capacity + cap2 + jnp.arange(cap2, dtype=jnp.int32),
-    )
-    out = o1.at[idx2].set(o2g, mode="drop", unique_indices=True)
-    count = c1 + c2
-    return count, out, v1 | v2 | (count > capacity)

@@ -1,6 +1,6 @@
 """KMP (branchless dense-DFA automaton scan) matcher op — jnp compute path.
 
-TPU-native redesign of the reference's KMP OpenCL kernel (SURVEY.md component
+JAX redesign of the reference's KMP OpenCL kernel (SURVEY.md component
 R3, BASELINE.json:5 "branchless automaton step for KMP").  Design:
 
 - The failure function is densified on the host into a ``(m+1, 256)`` DFA

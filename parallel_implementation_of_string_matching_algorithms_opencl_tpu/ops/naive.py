@@ -1,14 +1,14 @@
 """Naive (shift-AND window compare) matcher op — jnp compute path.
 
-TPU-native redesign of the reference's naive OpenCL kernel (SURVEY.md
+JAX redesign of the reference's naive OpenCL kernel (SURVEY.md
 component R1): instead of one work-item per position doing a byte loop, we
 compute, for each pattern index j, the vectorized compare
 ``text[j : j+N] == pattern[j]`` and AND the m shifted masks together.  XLA
-fuses the whole chain into one VPU loop over the text; there is no
+fuses the whole chain into one pass over the text; there is no
 data-dependent control flow and no gather.
 
 This op is also the exact-verification workhorse for the other algorithms'
-candidate masks, and the semantic ground truth for the Pallas kernels.
+candidate masks, and the semantic ground truth for the other algorithms.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from . import vma
 
 # Above this pattern length the shifted-compare chain rolls up into a
-# fori_loop: an unrolled chain is one fused VPU pass but O(m) HLO ops over
+# fori_loop: an unrolled chain is one fused vector pass but O(m) HLO ops over
 # the FULL array, and at m=256 trace size / compile time blow up
 # (round-1 verdict, weak #6).  The rolled form is O(1) trace size; it costs
 # m separate passes, acceptable on the fallback/tail paths that use this op

@@ -1,14 +1,14 @@
 """Rabin-Karp (polynomial window hash) matcher op — jnp compute path.
 
-TPU-native redesign of the reference's Rabin-Karp OpenCL kernel (SURVEY.md
+JAX redesign of the reference's Rabin-Karp OpenCL kernel (SURVEY.md
 component R2).  Design decisions (SURVEY.md §7.3 stage 5, hard part #3 —
-no 64-bit ints on TPU):
+no 64-bit integer arithmetic in the inner loop):
 
 - Modulus is 2**32: uint32 multiply/add wraparound IS the mod, so the inner
   loop has zero explicit modular-reduction cost.
 - The window hash H[i] = sum_j text[i+j] * B**(m-1-j) (mod 2**32) is computed
   as m fused multiply-accumulate passes over shifted views — the same
-  shift-chain shape as the naive op, so XLA fuses it into one VPU loop.
+  shift-chain shape as the naive op, so XLA fuses it into one pass.
 - Multi-pattern is where RK pays off: the hash is computed ONCE and compared
   against k scalar pattern hashes (k=8 in BASELINE config 2), vs k*m compare
   passes for naive.
@@ -76,17 +76,14 @@ def _verify_candidates(
     n_pos = text.shape[0]
     m = pattern.shape[0]
     # There can be at most n_pos candidates: clamp the gather to the text
-    # size.  Without this the kernel path's TAIL (m-1+pad bytes) still
-    # gathered verify_capacity=131072 windows — ~8 ms of the RK e2e wall
-    # for a 15-byte tail (measured; BM/naive tails had no such term).
+    # size, so a short text never gathers verify_capacity windows.
     verify_capacity = min(verify_capacity, n_pos)
     n_cand = jnp.sum(cand, dtype=jnp.int32)
 
     def fast_at(cap: int):
         # Count-tiered: rank-select AND window gather both cost per row,
-        # so verifying a ~100-candidate tail at a 2**19 configured
-        # capacity burned ~100 ms/pattern on v5e (measured; it dominated
-        # the 1 GB 8-pattern runner).  The output mask shape is
+        # so the gather runs at the smallest tier that holds the candidate
+        # count, not at the configured capacity.  The output mask shape is
         # cap-independent, so the switch needs no padding.
         padded = jnp.pad(text, (0, m))
         idx = masked_positions(cand, cap, fill=n_pos)

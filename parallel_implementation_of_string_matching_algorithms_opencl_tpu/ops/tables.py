@@ -1,6 +1,6 @@
 """Pattern-table precompute (host-side, numpy).
 
-TPU-native equivalent of the reference's host-side table precompute
+Host-side equivalent of the reference's table precompute
 (SURVEY.md §2 components R8-R10: KMP failure function, Boyer-Moore
 bad-character and good-suffix shift tables, Rabin-Karp hash constants).
 All tables are small (O(m) or O(m*256)) and are replicated to every chip
@@ -156,7 +156,7 @@ def _modinv_pow2_32(a: int) -> int:
 def rk_constants(m: int, base: int | None = None) -> dict:
     """Rabin-Karp constants for window length ``m`` with modulus 2**32.
 
-    The TPU-native design (SURVEY.md §7.3 stage 5, hard part #3) avoids
+    The design (SURVEY.md §7.3 stage 5, hard part #3) avoids
     64-bit ints and explicit ``%`` entirely: all arithmetic is uint32 and the
     modulus is 2**32, which int multiply/add wraparound implements for free.
     The base is odd, hence invertible mod 2**32, which enables the O(1)/byte

@@ -5,7 +5,7 @@ The decomposition mandated by BASELINE.json:5:
 - text sharded data-parallel across chips;
 - (m-1)-byte halo overlap at shard boundaries — realized with a single
   ``lax.ppermute`` that sends each shard's first (m-1) bytes to its left
-  neighbor (one ICI hop, no host round-trip);
+  neighbor (one device-to-device hop, no host round-trip);
 - pattern + tables replicated to every chip;
 - per-shard match counts merged via ``psum`` and offset lists via a
   fixed-capacity ``all_gather``.
@@ -32,33 +32,26 @@ from ..utils.io import as_byte_array, pad_to_multiple
 from .mesh import DATA_AXIS, make_data_mesh
 
 
-def _assemble_halo(local_text, local_words, halo: int, D: int, axis: str):
-    """(ext, ext_w): local shard extended with the next ceil(halo/4)*4
-    bytes of the GLOBAL stream, pulled from as many right neighbors as the
-    halo spans (multi-hop ppermute — a single hop silently clamped when
+def _assemble_halo(local_text, halo: int, D: int, axis: str):
+    """Local shard extended with the next ``halo`` bytes of the GLOBAL
+    stream, pulled from as many right neighbors as the halo spans
+    (multi-hop ppermute — a single hop silently clamped when
     m-1 > shard_len and dropped matches spanning >= 2 shard boundaries;
     round-1 VERDICT weak #1).  Hops past the last shard contribute zeros
     (ppermute default), which mirror the global zero padding past n and
     are never read by a valid start (p <= n - m)."""
     shard_len = local_text.shape[0]
-    halo_b = -(-halo // 4) * 4  # word-aligned so the int32 view composes
-    hops = min(-(-halo_b // shard_len), D - 1)
-    t_parts, w_parts = [local_text], [local_words]
-    rem = halo_b
+    hops = min(-(-halo // shard_len), D - 1)
+    parts = [local_text]
+    rem = halo
     for h in range(1, hops + 1):
         take = min(shard_len, rem)
         perm_h = [(i, i - h) for i in range(h, D)]
-        t_parts.append(
-            jax.lax.ppermute(local_text[:take], axis, perm=perm_h)
-        )
-        w_parts.append(
-            jax.lax.ppermute(local_words[: take // 4], axis, perm=perm_h)
-        )
+        parts.append(jax.lax.ppermute(local_text[:take], axis, perm=perm_h))
         rem -= take
     if rem > 0:  # halo longer than all remaining shards
-        t_parts.append(jnp.zeros((rem,), local_text.dtype))
-        w_parts.append(jnp.zeros((rem // 4,), local_words.dtype))
-    return jnp.concatenate(t_parts), jnp.concatenate(w_parts)
+        parts.append(jnp.zeros((rem,), local_text.dtype))
+    return jnp.concatenate(parts)
 
 
 _GATHER_CACHE: dict = {}
@@ -94,6 +87,16 @@ def _pick_bucket(maxc: int, cap: int) -> int:
     return min(max(1 << (maxc - 1).bit_length(), 128), cap)
 
 
+def _put_sharded(arr: np.ndarray, mesh, config: MatchConfig):
+    """(device text sharded over ``data``, shard_len): the host bytes,
+    padded to a whole number of ``pad_multiple`` shards, go straight from
+    numpy onto the sharding — each device receives only its own shard."""
+    d = mesh.shape[DATA_AXIS]
+    padded = pad_to_multiple(arr, config.pad_multiple * d)
+    sharding = NamedSharding(mesh, P(DATA_AXIS))
+    return jax.device_put(padded, sharding), len(padded) // d
+
+
 class DistributedMatcher:
     """Mesh-sharded exact matcher (any registered algorithm)."""
 
@@ -109,9 +112,7 @@ class DistributedMatcher:
         self.mesh = mesh if mesh is not None else make_data_mesh()
         self.n_shards = self.mesh.shape[DATA_AXIS]
         self.matcher = get_matcher(algo)(pattern, config)
-        # The matcher may specialize the config per pattern (BM probe
-        # layout); the specialized one must key _build's cache.
-        self.config = self.matcher.config
+        self.config = config
         self.m = self.matcher.m
 
     # -- traced per-shard body -------------------------------------------
@@ -127,46 +128,25 @@ class DistributedMatcher:
         halo = m - 1
         cap = config.capacity
 
-        def shard_body(local_text, local_words, n, pattern, tables):
+        def shard_body(local_text, n, pattern, tables):
             shard_len = local_text.shape[0]
             D = mesh.shape[DATA_AXIS]
             idx = jax.lax.axis_index(DATA_AXIS)
             shard_start = idx * shard_len
-            if halo > 0 and D > 1:
-                ext, ext_w = _assemble_halo(
-                    local_text, local_words, halo, D, DATA_AXIS
-                )
-            else:
-                # D == 1: no neighbor to pull halo from, and every valid
-                # start fits the padded buffer (n <= shard_len), so the
-                # concat — a 2x full-buffer HBM round trip, measured
-                # ~1-1.6 ms of the 1-device wrapper gap at 100 MB
-                # (exp/DIST_BREAKDOWN.json) — is pure waste.  local_words
-                # may arrive PRE-SHAPED (R, 1024) here (see _match_raw),
-                # which also kills the in-jit word relayout.
-                ext = local_text
-                ext_w = local_words
-            # Effective local n: global validity (p + shard_start <= n - m)
-            # intersected with ownership (p < shard_len); expressing it as a
-            # local text length lets the kernel _direct path apply it.
-            eff_halo = halo if D > 1 else 0
-            n_local = jnp.clip(n - shard_start, 0, shard_len + eff_halo)
-            direct = matcher_cls._direct(
-                ext, ext_w, n_local, pattern, tables, config
-            )
-            if direct is not None:
-                local_count, loc, local_ovf = direct
-                local_ovf = local_ovf.astype(jnp.int32)
-            else:
-                mask = matcher_cls._mask(
-                    ext, pattern, tables, config
-                )[:shard_len]
-                # Validity: a match may start at global p iff p <= n - m.
-                gpos = shard_start + jnp.arange(shard_len, dtype=jnp.int32)
-                mask = mask & (gpos <= n - m)
-                local_count = jnp.sum(mask, dtype=jnp.int32)
-                loc = emit.masked_positions(mask, cap)
-                local_ovf = (local_count > cap).astype(jnp.int32)
+            # D == 1: no neighbor to pull halo from, and every valid start
+            # fits the padded buffer (n <= shard_len), so the concat would
+            # be a full-buffer copy for nothing.
+            ext = (_assemble_halo(local_text, halo, D, DATA_AXIS)
+                   if halo > 0 and D > 1 else local_text)
+            mask = matcher_cls._start_mask(
+                ext, pattern, tables, config
+            )[:shard_len]
+            # Validity: a match may start at global p iff p <= n - m.
+            gpos = shard_start + jnp.arange(shard_len, dtype=jnp.int32)
+            mask = mask & (gpos <= n - m)
+            local_count = jnp.sum(mask, dtype=jnp.int32)
+            loc = emit.masked_positions(mask, cap)
+            local_ovf = (local_count > cap).astype(jnp.int32)
             goff = jnp.where(loc >= 0, loc + shard_start, -1)
             return (local_count.reshape(1), goff, local_ovf.reshape(1))
 
@@ -178,7 +158,7 @@ class DistributedMatcher:
         core = shard_map(
             shard_body,
             mesh=mesh,
-            in_specs=(P(DATA_AXIS), P(DATA_AXIS), P(), P(), P()),
+            in_specs=(P(DATA_AXIS), P(), P(), P()),
             out_specs=(P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
             check_vma=True,
         )
@@ -208,8 +188,8 @@ class DistributedMatcher:
                 check_vma=False,
             )
 
-            def run(text, words, n, pattern, tables):
-                c, goff, v = core(text, words, n, pattern, tables)
+            def run(text, n, pattern, tables):
+                c, goff, v = core(text, n, pattern, tables)
                 return stats(c, goff, v)
 
         else:
@@ -229,8 +209,8 @@ class DistributedMatcher:
                 check_vma=False,
             )
 
-            def run(text, words, n, pattern, tables):
-                c, goff, v = core(text, words, n, pattern, tables)
+            def run(text, n, pattern, tables):
+                c, goff, v = core(text, n, pattern, tables)
                 return merge(c, goff, v)
 
         fn = jax.jit(run)
@@ -243,28 +223,10 @@ class DistributedMatcher:
         """(MatchResult, per-shard counts (D,), per-shard offset rows
         (D, b) global already-rebased with -1 fill, shard_len bytes)."""
         n = len(arr)
-        # Tile-multiple shards: each shard's kernel then covers everything
-        # but the (m-1)-byte halo, keeping the slow jnp tail scan at ~zero
-        # (a 1024*d pad left a ~1.4 MB DFA-scanned tail per call; measured
-        # +18 ms on config 3).
-        tile = int(np.lcm(self.config.pad_multiple,
-                          type(self.matcher)._tile_bytes(self.config)))
-        padded = pad_to_multiple(arr, tile * self.n_shards)
-        shard_len = len(padded) // self.n_shards
-        sharding = NamedSharding(self.mesh, P(DATA_AXIS))
-        text_dev = jax.device_put(jnp.asarray(padded), sharding)
-        # D == 1 ships the PRE-SHAPED (R, 1024) word view (zero-copy host
-        # view; kernels consume it directly — no in-jit relayout).  D > 1
-        # keeps the 1-D view: the halo concat needs word-granular seams.
-        if self.n_shards == 1 and len(padded) % 4096 == 0:
-            words_np = padded.view(np.int32).reshape(-1, 1024)
-        else:
-            words_np = padded.view(np.int32)
-        words_dev = jax.device_put(jnp.asarray(words_np), sharding)
+        text_dev, shard_len = _put_sharded(arr, self.mesh, self.config)
         runner = self._build(self.mesh, type(self.matcher), self.config, self.m)
         out = runner(
             text_dev,
-            words_dev,
             jnp.int32(n),
             jnp.asarray(self.matcher.pattern_arr),
             jax.tree.map(jnp.asarray, self.matcher.tables),
@@ -371,39 +333,27 @@ class DistributedMultiMatcher:
         halo = m - 1
         cap = config.capacity
 
-        def shard_body(local_text, local_words, n, patterns, tables):
+        def shard_body(local_text, n, patterns, tables):
             shard_len = local_text.shape[0]
             D = mesh.shape[DATA_AXIS]
             idx = jax.lax.axis_index(DATA_AXIS)
             shard_start = idx * shard_len
-            if halo > 0 and D > 1:
-                ext, ext_w = _assemble_halo(
-                    local_text, local_words, halo, D, DATA_AXIS
-                )
-            else:
-                # D == 1: skip the concat, accept pre-shaped words (see
-                # DistributedMatcher._build).
-                ext, ext_w = local_text, local_words
-            eff_halo = halo if D > 1 else 0
-            n_local = jnp.clip(n - shard_start, 0, shard_len + eff_halo)
-            direct = RabinKarpMultiMatcher._multi_direct(
-                ext, ext_w, n_local, patterns, tables, config
+            ext = (_assemble_halo(local_text, halo, D, DATA_AXIS)
+                   if halo > 0 and D > 1 else local_text)
+            masks = RabinKarpMultiMatcher._multi_masks(
+                ext, patterns, tables, config
             )
-            if direct is None:
-                masks = RabinKarpMultiMatcher._multi_masks(
-                    ext, patterns, tables, config
-                )
-                gpos = shard_start + jnp.arange(shard_len, dtype=jnp.int32)
-                counts, offsets, ovfs = [], [], []
-                for p in range(k):
-                    mask = masks[p][:shard_len] & (gpos <= n - m)
-                    counts.append(jnp.sum(mask, dtype=jnp.int32))
-                    offsets.append(emit.masked_positions(mask, cap))
-                    ovfs.append(counts[-1] > cap)
-                direct = (
-                    jnp.stack(counts), jnp.stack(offsets), jnp.stack(ovfs)
-                )
-            local_counts, loc, local_ovf = direct  # (k,), (k,cap), (k,)
+            gpos = shard_start + jnp.arange(shard_len, dtype=jnp.int32)
+            counts, offsets, ovfs = [], [], []
+            for p in range(k):
+                mask = masks[p][:shard_len] & (gpos <= n - m)
+                counts.append(jnp.sum(mask, dtype=jnp.int32))
+                offsets.append(emit.masked_positions(mask, cap))
+                ovfs.append(counts[-1] > cap)
+            # (k,), (k, cap), (k,)
+            local_counts = jnp.stack(counts)
+            loc = jnp.stack(offsets)
+            local_ovf = jnp.stack(ovfs)
             goff = jnp.where(loc >= 0, loc + shard_start, -1)
             return local_counts, goff, local_ovf.astype(jnp.int32)
 
@@ -412,7 +362,7 @@ class DistributedMultiMatcher:
         core = shard_map(
             shard_body,
             mesh=mesh,
-            in_specs=(P(DATA_AXIS), P(DATA_AXIS), P(), P(), P()),
+            in_specs=(P(DATA_AXIS), P(), P(), P()),
             out_specs=(P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
             check_vma=True,
         )
@@ -440,8 +390,8 @@ class DistributedMultiMatcher:
                 check_vma=False,
             )
 
-            def run(text, words, n, patterns, tables):
-                c, goff, v = core(text, words, n, patterns, tables)
+            def run(text, n, patterns, tables):
+                c, goff, v = core(text, n, patterns, tables)
                 return stats(c, goff, v)
 
         else:
@@ -461,8 +411,8 @@ class DistributedMultiMatcher:
                 check_vma=False,
             )
 
-            def run(text, words, n, patterns, tables):
-                c, goff, v = core(text, words, n, patterns, tables)
+            def run(text, n, patterns, tables):
+                c, goff, v = core(text, n, patterns, tables)
                 return merge(c, goff, v)
 
         fn = jax.jit(run)
@@ -473,24 +423,10 @@ class DistributedMultiMatcher:
         """(counts (k,), rows (D, k, b) global -1-filled, overflowed (k,),
         shard_counts (D, k), shard_len bytes)."""
         n = len(arr)
-        # Tile-multiple shards, same as DistributedMatcher.match: the old
-        # pad_multiple*d padding left a ~MB-scale jnp-scanned tail per
-        # shard per call.
-        tile = int(np.lcm(self.config.pad_multiple,
-                          128 * self.config.pallas_chunk_bytes))
-        padded = pad_to_multiple(arr, tile * self.n_shards)
-        shard_len = len(padded) // self.n_shards
-        sharding = NamedSharding(self.mesh, P(DATA_AXIS))
-        text_dev = jax.device_put(jnp.asarray(padded), sharding)
-        if self.n_shards == 1 and len(padded) % 4096 == 0:
-            words_np = padded.view(np.int32).reshape(-1, 1024)
-        else:
-            words_np = padded.view(np.int32)
-        words_dev = jax.device_put(jnp.asarray(words_np), sharding)
+        text_dev, shard_len = _put_sharded(arr, self.mesh, self.config)
         runner = self._build(self.mesh, self.config, self.m, self.k)
         out = runner(
             text_dev,
-            words_dev,
             jnp.int32(n),
             jnp.asarray(self.matcher.pattern_arr),
             jax.tree.map(jnp.asarray, self.matcher.tables),

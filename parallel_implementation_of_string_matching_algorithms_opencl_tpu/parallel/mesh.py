@@ -1,9 +1,9 @@
 """Device-mesh construction for the 1-D ``data`` axis decomposition.
 
 The entire parallel model is data parallelism over text shards
-(SURVEY.md §2.2): a 1-D mesh whose single axis spans every chip, on ICI
-within a slice and DCN across slices — the axis order from
-``jax.make_mesh`` already prefers ICI-contiguous layouts.
+(SURVEY.md §2.2): a 1-D mesh whose single axis spans every device.  The
+cards of one host are joined all to all (NVLink), so device order does not
+matter.
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
 """Multi-host bootstrap (SURVEY.md §2.3, §3.3 — config 5, BASELINE.json:11).
 
 The reference is a single-process OpenCL program; multi-host scale-out is a
-target-framework feature.  The TPU-native communication backend is the XLA
-collective layer over ICI/DCN — no custom transport: this module only
+target-framework feature.  The communication backend is the XLA collective
+layer (NCCL between cards, the network between hosts) — no custom
+transport: this module only
 bootstraps the process group (``jax.distributed.initialize``) and provides
 per-host corpus slicing with overlapping halo *file reads*, so halo exchange
 at host granularity needs no network traffic at all (each host simply reads
 m-1 bytes past its slice).  Chip-granularity halos inside a host's shards
-still travel over ICI via ppermute (parallel/dist.py).
+still travel between devices via ppermute (parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ def initialize_cluster(
     Topology is decided from the arguments / environment ALONE
     (TPUMATCH_NUM_PROCESSES etc.) — backend state is only queried after
     ``jax.distributed.initialize`` has run.  With no arguments and no env,
-    the process stays single-process (TPU pod auto-detection still applies
-    when JAX's own env vars are set).  Returns topology facts.
+    the process stays single-process.  Returns topology facts.
     """
     global _initialized
     import jax

@@ -19,114 +19,28 @@ class MatchConfig:
     verify_capacity: int = 131072
     # Lane chunk length for the KMP DFA scan (smaller = more lanes).
     kmp_chunk: int = 2048
-    # KMP execution for m > 32 (state no longer fits one Shift-AND word):
-    # 'screen' (default) runs the K=1 prefix automaton on pattern[:32] as a
-    # candidate screen — the shared word-compare reconstruction
-    # (ops/reconstruct.extract_region) re-verifies every candidate against
-    # the FULL pattern, so output is byte-identical to the automaton while
-    # the scan stays at K=1 speed (round-3 measured the K-word carry
-    # ripple falling as ~1/K: m=256 ran 5x slower than m<=32).  Extends
-    # kernel coverage from the ripple's m<=256 to m<=509 (the dense-
-    # escalation rescan's SWAR halo bound; larger m uses the dense DFA).
-    # 'ripple' keeps the faithful K=ceil(m/32)-word carry-rippled automaton
-    # (m <= 256).
-    kmp_long: str = "screen"
     # Lane chunk length for the honest BM cursor variant.
     bm_chunk: int = 4096
     # 'filtered' (vectorized screen+verify, default) or 'cursor' (skip loop).
     bm_variant: str = "filtered"
-    # Boyer-Moore screen probe selection: 'table_gs' (default) scores
-    # candidate probe words by the pattern's bad-character shifts PLUS its
-    # good-suffix shifts — the full BM skip-heuristic pair
-    # (BASELINE.json:10) — and bakes them in as compile-time constants
-    # (one executable per probe layout, measured 2.1x faster than runtime
-    # scalars).  The good-suffix term only changes layouts for partially
-    # self-similar patterns, where it strictly improves screen
-    # selectivity (round-4 exp/gs_probe_bench.py: salted-periodic
-    # candidate blocks 601 -> 0, ordinary english/DNA/UTF-8 layouts
-    # identical).  'table' is the bad-char-only round-3 scoring;
-    # 'table_dyn' ships bad-char scores as runtime scalars (one
-    # executable per pattern LENGTH, slower dynamic-rotate screen);
-    # 'static' uses the first/last full words (round-1 behavior).
-    bm_probes: str = "table_gs"
-    # Internal: concrete per-pattern probe layout (tuple[4] of tuples),
-    # stamped by BoyerMooreMatcher at construction when bm_probes='table'.
-    # Part of the config hash on purpose: it keys the jit/kernel caches.
-    bm_probe_layout: tuple | None = None
-    # Boyer-Moore screen execution (sparse emission only): 'cand' emits
-    # probe-screen CANDIDATE block sums with no in-kernel verify (exact
-    # verify happens in the window-compare reconstruction — the fused
-    # kernel's per-tile pl.when verify stalled the tile pipeline, measured
-    # 3.75 vs 1.75 ms/256 MiB); 'fused' keeps the in-kernel verify.
-    bm_screen: str = "cand"
-    # Pad text length to a multiple of this (TPU lane/sublane friendliness;
-    # 4096 = one (1, 1024) int32 chunk row, so the pre-shaped word view the
-    # kernels consume always exists).
+    # Pad text length to a multiple of this, so nearby lengths share one
+    # compiled executable.
     pad_multiple: int = 4096
-    # Use Pallas kernels where available ("auto" = on TPU backends only,
-    # "on" = force, "off" = pure-XLA path).
-    use_pallas: str = "auto"
-    # Run Pallas kernels in interpreter mode (debugging / CPU CI).
-    interpret: bool = False
-    # Bytes per SWAR kernel chunk (per-lane sequential run; VMEM-tuned).
-    # Chunk-size sweep on v5e (256 MiB, kernel-only): 16384 beats 8192 for
-    # the sub-chunk-serial kernels (RK 7.9 -> 4.6 ms, KMP 9.8 -> 9.1 ms —
-    # fewer grid steps amortize per-step overhead) and 32768 exceeds the
-    # 16 MB scoped-VMEM stack.  The SWAR kernels clamp their chunk to
-    # 4096 internally (compare-chain temporaries), so this only affects
-    # the Shift-AND / rolling-hash layouts.
-    pallas_chunk_bytes: int = 16384
-    # Offset emission for the SWAR kernels: 'sparse' keeps the match-nibble
-    # plane in VMEM scratch and reconstructs offsets from per-512B block
-    # sums (kernel HBM traffic = read N + write N/128); 'nib' writes the
-    # full nibble plane to HBM (read N + write N) and rank-selects it.
-    emission: str = "sparse"
     # Rabin-Karp base override (odd uint32); None = ops.tables.RK_BASE.
     rk_base: int | None = None
     # Distributed offset merge: 'count_sized' (default) runs the scan +
     # psum/pmax stats first, then gathers offset buffers sized to the
     # next power of two >= the LARGEST per-shard count — collective
-    # traffic scales with the result, not with capacity (round-3 measured
-    # the fixed-capacity all_gather at 12.8% of the scan wall over DCN at
-    # 256 MiB shards, below the >=90% scaling target; BASELINE.json:5).
-    # 'fixed' keeps the single-dispatch capacity-sized all_gather (wins
-    # when results ~always fill capacity, or when the extra dispatch
-    # round-trip dominates, e.g. tiny texts).
+    # traffic scales with the result, not with capacity.  'fixed' keeps
+    # the single-dispatch capacity-sized all_gather (wins when results
+    # ~always fill capacity, or when the extra dispatch round-trip
+    # dominates, e.g. tiny texts).
     dist_gather: str = "count_sized"
-    # Multi-pattern candidate extraction granularity.
-    # 'pselect' (default, k <= 31): the RK screen emits per-block k-bit
-    # PATTERN-HIT masks (emit='pmask') and each candidate block verifies
-    # against only its <=2 flagged patterns (per-row one-hot selection
-    # of the pattern's SWAR words) — k/2-fold less verify ALU than
-    # 'blocks'.  Measured at the full config-2 profile (1 GB / k=8):
-    # 80 -> 70 ms e2e, exact (exp/pselect_ab.py); the S=2 main-path
-    # width is set by the measured per-block bit distribution (96.2%
-    # one bit, 3.75% two, 0.02% three — a 1-bit main path flooded the
-    # side plane and blanket-overflowed).  >2-bit blocks take a bounded
-    # full-k-chain side plane; k > 31 falls back to 'blocks'.
-    # 'blocks' verifies all 512 positions of every candidate block
-    # against all k patterns (the uniform design — still the fallback
-    # and the >31-pattern path).
-    # 'groups' (experimental, m <= 33) has the RK union screen
-    # emit 16-bit sub-block occupancy masks and verifies only each
-    # block's occupied 32-byte group (~16x less verify ALU) — but rows
-    # whose mask holds >1 group fall to a bounded side plane, and on
-    # real multi-pattern workloads such blocks are COMMON (r5 measured:
-    # config-2 shapes at 256 MiB put ~5k blocks on a 2048-row side plane,
-    # blanking offsets to the drain path; and even when the side fits,
-    # the mode measured 23.4 vs 21.7 ms e2e).  Kept as a measured
-    # negative of within-block granularity splitting; the ACROSS-PATTERN
-    # split ('pselect') is the one that pays.
-    multi_gather: str = "pselect"
 
     def __post_init__(self):
-        # The matchers view the padded text as int32 words; a pad target
-        # that is not word-aligned would make that view raise deep inside
-        # match().  Fail loudly at construction instead.
-        if self.pad_multiple < 4 or self.pad_multiple % 4:
+        if self.pad_multiple < 1:
             raise ValueError(
-                f"pad_multiple must be a positive multiple of 4 "
-                f"(int32 word view), got {self.pad_multiple}"
+                f"pad_multiple must be positive, got {self.pad_multiple}"
             )
 
     def replace(self, **kw) -> "MatchConfig":

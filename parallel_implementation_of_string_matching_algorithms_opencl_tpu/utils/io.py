@@ -1,6 +1,6 @@
 """Corpus I/O: byte-tensor loading, padding, and seeded corpus generation.
 
-TPU-native equivalent of the reference's host text loader + chunker
+Host-side equivalent of the reference's text loader + chunker
 (SURVEY.md components R11, R13).  Text is always treated as raw bytes —
 Unicode safety falls out of matching UTF-8 byte sequences directly.
 
@@ -27,9 +27,8 @@ def as_byte_array(data) -> np.ndarray:
     if isinstance(data, np.ndarray):
         if data.dtype != np.uint8:
             raise TypeError(f"expected uint8 array, got {data.dtype}")
-        # The matchers reinterpret the buffer as int32 words
-        # (padded.view(np.int32)); a non-contiguous user array would make
-        # that view raise, so normalize here (no copy when already flat).
+        # Device transfer and padding want one flat buffer; normalize a
+        # non-contiguous user array here (no copy when already flat).
         return np.ascontiguousarray(data)
     if isinstance(data, str):
         data = data.encode("utf-8")

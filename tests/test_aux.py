@@ -133,8 +133,7 @@ def test_cli_emission_probe_drain_flags(corpus_file):
     path, text = corpus_file
     # dense pattern + tiny capacity: --drain must still print every offset
     out = _run_cli(["bm", path, "e", "--capacity", "256", "--drain",
-                    "--offsets", "-1", "--json", "--emission", "nib",
-                    "--bm-probes", "static"])
+                    "--offsets", "-1", "--json"])
     assert out.returncode == 0, out.stderr
     import json as _json
 
@@ -151,10 +150,10 @@ def test_config_rejects_unaligned_pad_multiple():
         MatchConfig,
     )
 
-    for bad in (0, 2, 6, -4):
+    for bad in (0, -1, -4):
         with _pytest.raises(ValueError, match="pad_multiple"):
             MatchConfig(pad_multiple=bad)
-    MatchConfig(pad_multiple=4)  # minimal aligned value is fine
+    MatchConfig(pad_multiple=1)  # any positive value is fine
 
 
 def test_match_accepts_noncontiguous_uint8_view():
@@ -185,79 +184,3 @@ def test_valid_prefix_trims_at_first_hole():
     o2 = _np.array([3, 7, 9], _np.int64)
     assert valid_prefix(o2).tolist() == [3, 7, 9]
     assert valid_prefix(_np.array([], _np.int64)).tolist() == []
-
-
-def test_aot_cache_roundtrip(tmp_path, monkeypatch):
-    # The AOT executable cache must be exercisable on CPU too: force
-    # enabled=True, check a disk artifact appears, and that a second
-    # in-process call (memo) and a simulated fresh process (fresh memo)
-    # produce identical results from the cached file.
-    import jax
-    import jax.numpy as jnp
-
-    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.utils import (
-        aot,
-    )
-
-    monkeypatch.setenv("TPUMATCH_AOT_CACHE", str(tmp_path))
-    f = jax.jit(lambda x: (x * 2 + 1).sum())
-    x = jnp.arange(512, dtype=jnp.int32)
-    want = int(f(x))
-    assert int(aot.call(f, (x,), enabled=True)) == want
-    files = list(tmp_path.glob("*.pjrt"))
-    # CPU PJRT may or may not support executable serialization; if it
-    # doesn't, aot.call must still have returned the right answer and
-    # written nothing.
-    if files:
-        aot._MEMO.clear()  # simulate a fresh process
-        assert int(aot.call(f, (x,), enabled=True)) == want
-    # disabled path never touches the cache dir
-    g = jax.jit(lambda x: x.sum())
-    assert int(aot.call(g, (x,), enabled=False)) == int(g(x))
-
-
-def test_aot_cache_corrupt_file_recovers(tmp_path, monkeypatch):
-    import jax
-    import jax.numpy as jnp
-
-    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.utils import (
-        aot,
-    )
-
-    monkeypatch.setenv("TPUMATCH_AOT_CACHE", str(tmp_path))
-    f = jax.jit(lambda x: (x - 3).sum())
-    x = jnp.arange(256, dtype=jnp.int32)
-    aot._MEMO.clear()
-    int(aot.call(f, (x,), enabled=True))
-    for p in tmp_path.glob("*.pjrt"):
-        p.write_bytes(b"garbage")
-    aot._MEMO.clear()
-    assert int(aot.call(f, (x,), enabled=True)) == int(f(x))
-
-
-# -- drift sentinel (bench.py) ---------------------------------------------
-
-
-def test_drift_moved_and_verdict():
-    sys.path.insert(0, REPO)
-    import bench as bench_mod
-
-    res = {
-        "naive": {"bytes_per_s_per_chip": 60e9},
-        "boyer_moore": {"bytes_per_s_per_chip": 110e9},
-        "kmp": {"bytes_per_s_per_chip": 50e9},
-    }
-    ref = {"naive": 120.0, "boyer_moore": 109.9}  # kmp absent from ref
-    moved = bench_mod.drift_moved(res, ref)
-    assert [m[0] for m in moved] == ["naive"]  # BM within 25%, kmp skipped
-    algo, old, new = moved[0]
-    assert old == 120.0 and abs(new - 60.0) < 1e-6
-
-    # Upward moves trigger too (a suspicious speedup is also worth an A/B).
-    res2 = {"naive": {"bytes_per_s_per_chip": 160e9}}
-    assert bench_mod.drift_moved(res2, ref)[0][0] == "naive"
-
-    # Verdict: ref commit reproducing HEAD's number in the same window =>
-    # environment; reproducing its own old number => code.
-    assert bench_mod.drift_verdict(60.0, 61.0) == "environment"
-    assert bench_mod.drift_verdict(60.0, 118.0) == "code"

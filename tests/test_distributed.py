@@ -175,38 +175,22 @@ def test_dist_resolve_runner_output(mode):
     # an exact count (round-4 config-3 bench regression).  Exercise a
     # per-shard count > 128 so the bucket escalates past its floor.
     import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu.parallel.dist import (  # noqa: E501
         DistributedMatcher,
-    )
-    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.parallel.mesh import (  # noqa: E501
-        DATA_AXIS,
-    )
-    from parallel_implementation_of_string_matching_algorithms_opencl_tpu.utils.io import (  # noqa: E501
-        pad_to_multiple,
+        _put_sharded,
     )
 
-    cfg = CFG.replace(capacity=1024, dist_gather=mode,
-                      pallas_chunk_bytes=512)
+    cfg = CFG.replace(capacity=1024, dist_gather=mode)
     text = bytearray(b"." * 8192)
     text[0:400] = b"a" * 400  # 399 'aa' starts in shard 0 (> 128 bucket floor)
     text[5000:5020] = b"a" * 20
     want = find_all(bytes(text), b"aa")
     dm = DistributedMatcher(b"aa", algo="naive", config=cfg)
     mesh = dm.mesh
-    # pad exactly as _match_raw does (tile-multiple shards)
-    tile = int(np.lcm(cfg.pad_multiple,
-                      type(dm.matcher)._tile_bytes(dm.config)))
-    padded = pad_to_multiple(
-        np.frombuffer(bytes(text), np.uint8),
-        tile * mesh.shape[DATA_AXIS],
-    )
-    sh = NamedSharding(mesh, P(DATA_AXIS))
-    td = jax.device_put(jnp.asarray(padded), sh)
-    wd = jax.device_put(jnp.asarray(padded.view(np.int32)), sh)
+    td, _ = _put_sharded(np.frombuffer(bytes(text), np.uint8), mesh, cfg)
     runner = dm._build(mesh, type(dm.matcher), dm.config, dm.m)
-    out = runner(td, wd, jnp.int32(len(text)),
+    out = runner(td, jnp.int32(len(text)),
                  jnp.asarray(dm.matcher.pattern_arr),
                  jax.tree.map(jnp.asarray, dm.matcher.tables))
     count, _ovf, _scounts, rows = dm.resolve_runner_output(out)
@@ -263,9 +247,8 @@ def test_dist_multi_drain_recovers_all_offsets():
 
 @pytest.mark.parametrize("algo", ["kmp", "rabin_karp"])
 def test_dist_single_device_mesh_parity(algo):
-    # D == 1 mesh (round 5): the halo concat and the in-jit word relayout
-    # are skipped (no neighbors; pre-shaped words) — exactness must hold
-    # on the exact same path the config-3 bench rows time.
+    # D == 1 mesh: the halo concat is skipped (no neighbors) — exactness
+    # must hold on the exact same path the config-3 bench rows time.
     mesh = make_data_mesh(1)
     rng = np.random.default_rng(51)
     data = bytearray(rng.integers(97, 123, size=20000, dtype=np.uint8).tobytes())

@@ -2,8 +2,8 @@
 
 Spawns N local processes that each run ``jax.distributed.initialize``
 against a localhost coordinator on the CPU backend, then execute the
-collective ``match_multihost`` — the same code path a TPU pod slice runs,
-with DCN collectives riding localhost gRPC here.  Matches are planted
+collective ``match_multihost`` — the same code path several hosts run,
+with the cross-host collectives riding localhost gRPC here.  Matches are planted
 straddling the host-slice boundary so the overlapping-file-read halo is
 exercised for real.
 """

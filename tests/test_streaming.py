@@ -86,7 +86,6 @@ def test_stream_resume(corpus, tmp_path):
         n_eff = min(valid_n, CHUNK + sm.m - 1)
         count, offsets, ovf = sm._runner(
             jnp.asarray(buf),
-            jnp.asarray(buf.view(np.int32)),
             jnp.int32(n_eff),
             sm._pat_dev,
             sm._tables_dev,
@@ -140,7 +139,7 @@ def test_stream_resume_preserves_overflow(corpus, tmp_path):
     sm._journal_reset(0)
     for ci, start, owned_len, valid_n, buf in sm._iter_chunks(str(dense), 0):
         count, offsets, ovf = sm._runner(
-            jnp.asarray(buf), jnp.asarray(buf.view(np.int32)),
+            jnp.asarray(buf),
             jnp.int32(min(valid_n, CHUNK + sm.m - 1)),
             sm._pat_dev, sm._tables_dev,
         )
